@@ -1,0 +1,225 @@
+"""KUKA iiwa 7-DoF environment: batched FK plus the capsule kernel.
+
+Port of gnn_motion_planning_tpu/envs/kuka.py for kuka7. Problems are the
+pickled (obstacles(halfExtents, basePosition), start, goal, demo_path)
+lists; the robot is a capsule decomposition of the URDF meshes with the
+calibrated radii; the device oracle is batched FK in torch plus
+``ops/capsule.py::capsules_hit``. Host sampling goes through the port's own
+build of the float64 native core (utils/geomcore.py), as the JAX package's
+does, so the accepted-sample stream is the same. A missing native core is
+an error, never a silent switch to another oracle.
+"""
+
+from __future__ import annotations
+
+import json
+import pickle
+from pathlib import Path
+from typing import NamedTuple, Optional
+
+import numpy as np
+import torch
+
+from gnn_motion_planning_tpu_torch import resolve_device
+from gnn_motion_planning_tpu_torch.envs.base import EnvKernels, K_CHEAP, make_fixed_step_edge_free
+from gnn_motion_planning_tpu_torch.envs.kinematics import (
+    ChainParams,
+    capsules_world,
+    chain_from_model,
+    sum_last,
+)
+from gnn_motion_planning_tpu_torch.envs.urdf import parse_urdf
+from gnn_motion_planning_tpu_torch.ops.capsule import capsules_hit
+from gnn_motion_planning_tpu_torch.utils.assets import asset_path
+from gnn_motion_planning_tpu_torch.utils.geomcore import GeomChain
+
+MAX_OBSTACLES = 16
+
+
+def _apply_calibration(chain: ChainParams, urdf_relpath: str) -> ChainParams:
+    """Shrink capsule radii by the offsets calibrated against the shipped
+    known-free configurations (assets/calibration/<urdf stem>.json)."""
+
+    try:
+        cal_path = asset_path(f"calibration/{Path(urdf_relpath).stem}.json")
+    except FileNotFoundError:
+        return chain
+    offsets = np.asarray(json.loads(Path(cal_path).read_text())["radius_offsets"], np.float32)
+    if offsets.shape[0] != chain.cap_r.shape[0]:
+        return chain  # stale calibration for a different decomposition
+    off = torch.as_tensor(offsets, device=chain.cap_r.device)
+    return chain._replace(cap_r=torch.clamp_min(chain.cap_r - off, 1e-3))
+
+
+class BoxScene(NamedTuple):
+    """Padded axis-aligned obstacle set for one problem."""
+
+    centers: torch.Tensor  # (MAX_OBSTACLES, 3)
+    halfs: torch.Tensor  # (MAX_OBSTACLES, 3)
+    mask: torch.Tensor  # (MAX_OBSTACLES,) bool
+
+
+def _coerce_vec3(x) -> np.ndarray:
+    return np.array([float(np.asarray(v).reshape(-1)[0]) for v in x], np.float32)
+
+
+def make_box_scene(obstacles, device) -> BoxScene:
+    centers = np.zeros((MAX_OBSTACLES, 3), np.float32)
+    halfs = np.zeros((MAX_OBSTACLES, 3), np.float32)
+    mask = np.zeros(MAX_OBSTACLES, bool)
+    for i, (half, base) in enumerate(obstacles):
+        halfs[i] = _coerce_vec3(half)
+        centers[i] = _coerce_vec3(base)
+        mask[i] = True
+    return BoxScene(*(torch.as_tensor(a, device=device) for a in (centers, halfs, mask)))
+
+
+def make_chain_kernels(chain: ChainParams, rrt_eps: float, k_max: int) -> EnvKernels:
+    """EnvKernels for a serial-chain robot among AABB obstacles."""
+
+    lower, upper = chain.lower, chain.upper
+
+    def batch_state_free(scene: BoxScene, qs: torch.Tensor):
+        valid = ((qs >= lower) & (qs <= upper)).all(dim=1)
+        p0, p1, r = capsules_world(chain, qs)
+        hit = capsules_hit(
+            p0.contiguous(), p1.contiguous(), r, scene.centers, scene.halfs, scene.mask
+        )
+        return valid & ~hit, valid.to(torch.int32)
+
+    def distance(a, b):
+        b = torch.minimum(torch.maximum(b, lower), upper)
+        return torch.sqrt(sum_last((b - a) ** 2))
+
+    def interpolate(a, b, ratio):
+        new = a + (b - a) * ratio[..., None]
+        return torch.minimum(torch.maximum(new, lower), upper)
+
+    edge_free = make_fixed_step_edge_free(
+        batch_state_free, distance, lower, upper, rrt_eps, k_max
+    )
+    edge_free_cheap = None
+    if k_max > K_CHEAP + 16:
+        edge_free_cheap = make_fixed_step_edge_free(
+            batch_state_free, distance, lower, upper, rrt_eps, K_CHEAP,
+            with_overflow=True,
+        )
+    return EnvKernels(
+        batch_state_free=batch_state_free,
+        edge_free=edge_free,
+        distance=distance,
+        interpolate=interpolate,
+        edge_free_cheap=edge_free_cheap,
+        bounds=(lower, upper),
+    )
+
+
+class KukaEnv:
+    """Host wrapper with the reference env protocol (kuka_env.py:10-411)."""
+
+    RRT_EPS = 0.5
+
+    def __init__(
+        self,
+        kuka_file: str = "kuka_iiwa/model_0.urdf",
+        map_file: str = "maze_files/kukas_7_3000.pkl",
+        device=None,
+    ):
+        self.device = resolve_device(device)
+        self.collision_check_count = 0
+        self.rng = None
+
+        model = parse_urdf(asset_path(kuka_file))
+        self.chain = _apply_calibration(chain_from_model(model, self.device), kuka_file)
+        self.config_dim = model.config_dim
+        self.pose_range = [(float(lo), float(hi)) for lo, hi in model.pose_range()]
+
+        with open(asset_path(map_file), "rb") as f:
+            self.problems = pickle.load(f)
+        self.episode_i = 0
+        self._native = GeomChain(self.chain.numpy_arrays(), self.RRT_EPS)
+        self._kernels = None
+
+    def __str__(self):
+        return "kuka" + str(self.config_dim)
+
+    def init_new_problem(self, index: Optional[int] = None):
+        if index is None:
+            index = self.episode_i
+        self.index = index
+        obstacles, start, goal, path = self.problems[index]
+        self.episode_i = (self.episode_i + 1) % len(self.problems)
+        self.collision_check_count = 0
+        self.obstacles = obstacles
+        self.init_state = np.asarray(start)
+        self.goal_state = np.asarray(goal)
+        self.path = path
+        self._scene = make_box_scene(obstacles, self.device)
+        if obstacles:
+            centers = np.stack([_coerce_vec3(b) for _, b in obstacles])
+            halfs = np.stack([_coerce_vec3(h) for h, _ in obstacles])
+        else:
+            centers = halfs = np.zeros((0, 3))
+        self._native.set_scene(centers, halfs)
+
+    def device_scene(self) -> BoxScene:
+        return self._scene
+
+    def kernels(self) -> EnvKernels:
+        if self._kernels is None:
+            self._kernels = make_chain_kernels(self.chain, self.RRT_EPS, self._k_max())
+        return self._kernels
+
+    def _k_max(self) -> int:
+        pr = np.array(self.pose_range)
+        d_max = float(np.linalg.norm(pr[:, 1] - pr[:, 0]))
+        return int(d_max / self.RRT_EPS) + 2
+
+    def obs_tokens(self):
+        toks = np.zeros((MAX_OBSTACLES, 6), np.float32)
+        mask = np.zeros(MAX_OBSTACLES, bool)
+        for i, (half, base) in enumerate(self.obstacles):
+            toks[i, :3] = _coerce_vec3(half)
+            toks[i, 3:] = _coerce_vec3(base)
+            mask[i] = True
+        return toks, mask
+
+    # -- sampling ------------------------------------------------------------
+
+    def sample_n_points(self, n: int, need_negative: bool = False):
+        """Chunked rejection sampling through the native core, with the
+        consumed prefix replayed so the stream matches a one-at-a-time loop
+        (kuka.py:388-451; the native core keeps the minimal 2x chunk)."""
+
+        rng = self.rng
+        if rng is None:
+            raise ValueError("set env.rng (config.problem_rng) before sampling")
+        pr = np.array(self.pose_range)
+        samples: list = []
+        negative: list = []
+        need = n
+        while need > 0:
+            chunk = max(2 * need, 512)
+            state = rng.get_state()
+            draws = rng.uniform(pr[:, 0], pr[:, 1], (chunk, self.config_dim))
+            ok, _ = self._native.states_free(draws)
+            n_acc = int(ok.sum())
+            if n_acc >= need:
+                stop = int(np.nonzero(np.cumsum(ok) == need)[0][0]) + 1
+                rng.set_state(state)
+                rng.uniform(pr[:, 0], pr[:, 1], (stop, self.config_dim))
+                draws, ok = draws[:stop], ok[:stop]
+                need = 0
+            else:
+                need -= n_acc
+            self.collision_check_count += len(draws)
+            samples.extend(draws[ok])
+            negative.extend(draws[~ok])
+        return (samples, negative) if need_negative else samples
+
+    # -- metric (host) -------------------------------------------------------
+
+    def distance(self, from_state, to_state):
+        pr = np.array(self.pose_range)
+        to_state = np.clip(to_state, pr[:, 0], pr[:, 1])
+        return np.sqrt(np.sum((to_state - from_state) ** 2, axis=-1))

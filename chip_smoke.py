@@ -6,21 +6,37 @@
 Phases, each bracketed by a progress line with the elapsed seconds:
 
 0. card and build: the card's name and power limit, the torch and CUDA
-   versions; the capsule kernel (plain ``nvcc``) and the native float64
-   core (``g++``) are built in parallel into ``build/torch_port/``.
-1. the kernel against its plain PyTorch version on the card: two random
-   scenes and real kuka7 capsules at the main path's batch (B = 4096,
-   C = 24, O = 16). The decisions must be bit-equal.
+   versions; the capsule kernels' source (plain ``nvcc``, both entry
+   points) and the native float64 core (``g++``) are built in parallel into
+   ``build/torch_port/``; the ``-Xptxas -v`` lines (registers, spills) of
+   both entry points, at each width of lane group, are printed.
+1. each entry point against its plain PyTorch version on the card (B =
+   4096 runs groups of 16 lanes a configuration, smaller batches whole
+   warps, ``ops/capsule.py::lanes_for``). ``capsules_hit`` (entry A): two random scenes and real kuka7 capsules at
+   B = 4096, C = 24, O = 16. ``chain_states_free`` (entry B): kuka7 problem
+   2000 at B = 4096, 31 and 1 and the kuka13 chain (J = 13, C = 42) in
+   kuka13 problem 2000's scene at B = 4096, configurations uniform in the
+   joint limits with every 20th outside them (and a NaN row), with and
+   without the endpoint output. Decisions and check counts must be equal;
+   the largest difference of the kernel's capsule endpoints from
+   ``capsules_world`` is printed.
 2. end to end: ``eval_gnn("kuka7")`` at full width (batch 500, k 30,
-   t_max 500, seed 1234) on test problems 2000-2004. The kernel's launch
-   counter, set to 0 just before, must be above 0 after. The rows are
-   printed beside those the JAX package recorded on the CPU
+   t_max 500, seed 1234) on test problems 2000-2004. The launch counters,
+   set to 0 just before, must show ``chain_states_free`` launched and
+   ``capsules_hit`` not (the main path runs FK inside the fused kernel).
+   The rows are printed beside those the JAX package recorded on the CPU
    (tests/data/torch_port_kuka7_jax_rows.json); a difference there is
    reported, not fatal (an order-of-summation difference can flip a
    near-tie argmax), but every path must be finite and join start to goal.
-3. timing at B = 4096, C = 24, O = 16: the wrapper and the plain version,
-   CUDA events around 10 calls, median of 21 after warm-up, in turns; and
-   the bare kernel, 200 launches through its C entry point. Then seconds
+3. timing at the main path's batches, B = 4096 (flat projection), 31 (edge
+   check) and 1 (goal state), kuka7 problem 2000: each entry point's
+   wrapper against its plain version, and entry B against the composition
+   it replaced (torch FK + entry A), CUDA events around 10 calls, median of
+   21 after warm-up, in turns; the bare kernel of each entry, 200 launches
+   through its C entry point; the bounds from this run's data. The bare
+   kernels at each width of lane group: kuka7 problem 2000 at B = 1 to
+   4096, and at B = 4096 kuka7 problem 2004 (6 active boxes) and kuka13
+   problem 2000 (C = 42, 8 active boxes). Then seconds
    per stage of eval_gnn (a second pass over the same problems).
 
 A watchdog ends a stalled run with every thread's stack and a non-zero
@@ -92,6 +108,19 @@ def random_scene(seed: int, device):
     return tuple(torch.as_tensor(a, device=device) for a in (p0, p1, r, centers, halfs, mask))
 
 
+def chain_configs(env, batch: int, seed: int):
+    """(batch, dof) float32 configurations uniform in the joint limits, every
+    20th row from row 10 on pushed outside them (one check, never free)."""
+
+    import numpy as np
+    import torch
+
+    lo, hi = env.chain.lower.cpu().numpy(), env.chain.upper.cpu().numpy()
+    qs = np.random.RandomState(seed).uniform(lo, hi, (batch, lo.shape[0])).astype(np.float32)
+    qs[10::20] += hi - lo
+    return torch.as_tensor(qs, device=env.device)
+
+
 def kuka7_scene(env, batch: int, seed: int = 0):
     """Capsules of ``batch`` uniform kuka7 configurations, with the scene of
     the env's current problem: (p0, p1, r, centers, halfs, mask)."""
@@ -110,7 +139,7 @@ def kuka7_scene(env, batch: int, seed: int = 0):
 
 
 def check_kernel(name: str, args) -> int:
-    """Kernel against the plain version on the same inputs; returns the
+    """Entry A against the plain version on the same inputs; returns the
     number of differing decisions (must be 0)."""
 
     from gnn_motion_planning_tpu_torch.ops import capsule
@@ -120,16 +149,47 @@ def check_kernel(name: str, args) -> int:
     n_diff = int((got != want).sum())
     B, C = args[0].shape[:2]
     print(
-        f"  {name}: B={B} C={C} O={args[3].shape[0]} hits={int(want.sum())} "
-        f"differing={n_diff}",
+        f"  capsules_hit {name}: B={B} C={C} O={args[3].shape[0]} "
+        f"lanes={capsule.lanes_for(B)} hits={int(want.sum())} differing={n_diff}",
         flush=True,
     )
     return n_diff
 
 
-def time_pair(fn_a, fn_b, reps: int = 21, calls: int = 10, warmup: int = 3):
-    """Median ms per call of fn_a and fn_b: CUDA events around ``calls``
-    back-to-back calls, ``reps`` times each, in turns a b b a."""
+def check_chain(name: str, env, qs):
+    """Entry B against its plain version on the same inputs, with and
+    without the endpoint output; returns (differing decisions and counts,
+    largest endpoint difference from capsules_world over finite rows)."""
+
+    import torch
+
+    from gnn_motion_planning_tpu_torch.envs.kinematics import capsules_world
+    from gnn_motion_planning_tpu_torch.ops import capsule
+
+    packed, scene = capsule.pack_chain(env.chain), env.device_scene()
+    B, C = qs.shape[0], env.chain.cap_r.shape[0]
+    want_free, want_cnt = capsule.chain_states_free_reference(qs, packed, scene)
+    ends = (torch.empty(B, C, 3, device=qs.device), torch.empty(B, C, 3, device=qs.device))
+    n_diff = 0
+    for endpoints in (None, ends):
+        free, cnt = capsule.chain_states_free(qs, packed, scene, endpoints=endpoints)
+        n_diff += int((free != want_free).sum()) + int((cnt != want_cnt).sum())
+    p0, p1, _ = capsules_world(env.chain, qs)
+    rows = torch.isfinite(qs).all(dim=1)
+    err = max(float((ends[0] - p0)[rows].abs().max()), float((ends[1] - p1)[rows].abs().max()))
+    print(
+        f"  chain_states_free {name}: B={B} J={packed.sizes[0]} C={C} "
+        f"lanes={capsule.lanes_for(B)} "
+        f"active={int(scene.mask.sum())} valid={int(want_cnt.sum())} "
+        f"free={int(want_free.sum())} differing={n_diff} endpoint max diff={err:.3g}",
+        flush=True,
+    )
+    return n_diff, err
+
+
+def time_turns(fns: dict, reps: int = 21, calls: int = 10, warmup: int = 3) -> dict:
+    """Median ms per call of each function: CUDA events around ``calls``
+    back-to-back calls, ``reps`` times each, in turns (a b c, c b a, ...)."""
 
     import torch
 
@@ -143,41 +203,202 @@ def time_pair(fn_a, fn_b, reps: int = 21, calls: int = 10, warmup: int = 3):
         end.synchronize()
         return start.elapsed_time(end) / calls
 
+    names = list(fns)
     for _ in range(warmup):
-        fn_a(), fn_b()
-    ta, tb = [], []
+        for name in names:
+            fns[name]()
+    times: dict = {name: [] for name in names}
     for i in range(reps):
-        order = (fn_a, fn_b, fn_b, fn_a) if i % 2 == 0 else (fn_b, fn_a, fn_a, fn_b)
-        for fn in order:
-            (ta if fn is fn_a else tb).append(once(fn))
-    return sorted(ta)[len(ta) // 2], sorted(tb)[len(tb) // 2]
+        for name in names if i % 2 == 0 else names[::-1]:
+            times[name].append(once(fns[name]))
+    return {name: sorted(t)[len(t) // 2] for name, t in times.items()}
 
 
-def kernel_only_ms(args, calls: int = 200) -> float:
-    """ms per launch of the bare kernel: CUDA events around ``calls``
-    back-to-back launches through the C entry point, without the wrapper's
+def bare_ms(launch, calls: int = 200) -> float:
+    """ms per launch of a bare kernel: CUDA events around ``calls``
+    back-to-back launches through its C entry point, without the wrapper's
     checks and allocation, so the card and not the host sets the pace."""
 
     import torch
 
-    from gnn_motion_planning_tpu_torch.ops import capsule
-
-    p0, p1, r, centers, halfs, mask = args
-    out = torch.zeros(p0.shape[0], dtype=torch.int32, device=p0.device)
-    lib = capsule.load_library()
-    ptrs = [t.data_ptr() for t in (p0, p1, r, centers, halfs, mask)]
-    dims = (p0.shape[0], p0.shape[1], centers.shape[0])
-    stream = torch.cuda.current_stream().cuda_stream
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     start.record()
     for _ in range(calls):
-        err = lib.capsules_hit_launch(*ptrs, *dims, out.data_ptr(), stream)
+        err = launch()
         if err:
-            raise RuntimeError(f"capsules_hit launch failed: cudaError {err}")
+            raise RuntimeError(f"kernel launch failed: cudaError {err}")
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / calls
+
+
+def count_ops(fn) -> int:
+    """Top-level aten ops one call of fn queues (torch.profiler, host side)."""
+
+    import torch
+
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sum(1 for e in prof.events() if e.name.startswith("aten::") and e.cpu_parent is None)
+
+
+def pairs_needed(contacts):
+    """(B,) pairs a configuration needs in the kernels' order: up to its
+    first contact, capsule-major, or all C x A when there is none."""
+
+    import torch
+
+    flat = contacts.flatten(1)
+    n = flat.shape[1]
+    first = torch.where(flat.any(dim=1), flat.int().argmax(dim=1) + 1, n)
+    return first.to(torch.int64)
+
+
+def bound_ms(flops: float, nbytes: float):
+    """(bound ms, "operations" or "bytes") at the H100's fp32 and HBM peaks."""
+
+    ops_ms = flops / PEAK_FP32_FLOPS * 1e3
+    bytes_ms = nbytes / PEAK_BYTES_PER_S * 1e3
+    return max(ops_ms, bytes_ms), ("operations" if ops_ms >= bytes_ms else "bytes")
+
+
+def bare_launchers(env, batch: int, seed: int):
+    """Bare launches of both entry points at ``batch`` configurations uniform
+    in the limits, in the env's current scene: (entry A's launch, entry B's
+    launch), each taking the lane-group width, and the inputs (qs, entry A's
+    arguments, the packed chain)."""
+
+    import numpy as np
+    import torch
+
+    from gnn_motion_planning_tpu_torch.envs.kinematics import capsules_world
+    from gnn_motion_planning_tpu_torch.ops import capsule
+
+    chain, scene = env.chain, env.device_scene()
+    packed = capsule.pack_chain(chain)
+    J, C, dof = packed.sizes
+    O = scene.centers.shape[0]
+    lo, hi = chain.lower.cpu().numpy(), chain.upper.cpu().numpy()
+    qs = np.random.RandomState(seed).uniform(lo, hi, (batch, dof))
+    qs = torch.as_tensor(qs.astype(np.float32), device=env.device)
+    p0, p1, r = capsules_world(chain, qs)
+    args_a = (p0.contiguous(), p1.contiguous(), r, scene.centers, scene.halfs, scene.mask)
+    lib = capsule.load_library()
+    stream = torch.cuda.current_stream().cuda_stream
+    out = torch.empty(batch, dtype=torch.bool, device=env.device)
+    cnt = torch.empty(batch, dtype=torch.int32, device=env.device)
+    ptr = [x.data_ptr() for x in args_a]
+
+    def launch_a(lanes):
+        return lib.capsules_hit_launch(*ptr, batch, C, O, out.data_ptr(), lanes, stream)
+
+    def launch_b(lanes):
+        return lib.chain_states_free_launch(
+            qs.data_ptr(), batch, dof, packed.floats.data_ptr(), packed.ints.data_ptr(), J, C,
+            scene.centers.data_ptr(), scene.halfs.data_ptr(), scene.mask.data_ptr(), O,
+            out.data_ptr(), cnt.data_ptr(), None, None, lanes, stream)
+
+    return launch_a, launch_b, (qs, args_a, packed)
+
+
+def lane_sweep(name: str, env, batch: int = 4096) -> dict:
+    """Bare ms of both entry points at each width of lane group, in turns."""
+
+    from gnn_motion_planning_tpu_torch.ops import capsule
+
+    launch_a, launch_b, _ = bare_launchers(env, batch, seed=batch)
+    choices = capsule.LANE_CHOICES
+    times: dict = {}
+    for i in range(5):
+        for lanes in choices if i % 2 == 0 else choices[::-1]:
+            for entry, launch in (("A", launch_a), ("B", launch_b)):
+                times.setdefault((entry, lanes), []).append(
+                    bare_ms(lambda: launch(lanes)))
+    med = {k: sorted(v)[len(v) // 2] for k, v in times.items()}
+    print(f"  lanes sweep {name} B={batch} active={int(env.device_scene().mask.sum())}: " +
+          "; ".join(f"{entry} at {lanes} lanes {med[(entry, lanes)]:.4f} ms"
+                    for entry in "AB" for lanes in choices), flush=True)
+    return med
+
+
+def time_batch(env, batch: int, card: str) -> dict:
+    """Both entry points at one batch of configurations uniform in the limits,
+    in the env's current scene: wrapper, plain version, bare kernel, bounds
+    from this data."""
+
+    import torch
+
+    from gnn_motion_planning_tpu_torch.envs.kinematics import capsules_world
+    from gnn_motion_planning_tpu_torch.ops import capsule
+
+    chain, scene = env.chain, env.device_scene()
+    launch_a, launch_b, (qs, args_a, packed) = bare_launchers(env, batch, seed=batch)
+    J, C, dof = packed.sizes
+    O = scene.centers.shape[0]
+    lo, hi = chain.lower, chain.upper
+
+    def torch_fk_and_entry_a():
+        # the oracle before the fused kernel: limits, torch FK, entry A
+        valid = ((qs >= lo) & (qs <= hi)).all(dim=1)
+        e0, e1, er = capsules_world(chain, qs)
+        hit = capsule.capsules_hit(e0.contiguous(), e1.contiguous(), er, scene.centers,
+                                   scene.halfs, scene.mask)
+        return valid & ~hit, valid.to(torch.int32)
+
+    t = time_turns({
+        "B": lambda: capsule.chain_states_free(qs, packed, scene),
+        "B plain": lambda: capsule.chain_states_free_reference(qs, packed, scene),
+        "torch FK + A": torch_fk_and_entry_a,
+    })
+    t.update(time_turns({
+        "A": lambda: capsule.capsules_hit(*args_a),
+        "A plain": lambda: capsule.capsules_hit_reference(*args_a),
+    }))
+
+    t["B ops"] = count_ops(lambda: capsule.chain_states_free(qs, packed, scene))
+    t["torch FK + A ops"] = count_ops(torch_fk_and_entry_a)
+
+    t["A bare"] = bare_ms(lambda: launch_a(capsule.lanes_for(batch)))
+    t["B bare"] = bare_ms(lambda: launch_b(capsule.lanes_for(batch)))
+
+    # work this run's data needs, in the kernels' order: pairs up to the
+    # first contact; entry B skips FK and pairs of out-of-limit states
+    n_active = int(scene.mask.sum())
+    pairs = pairs_needed(capsule.capsule_contacts(*args_a))
+    valid = ((qs >= lo) & (qs <= hi)).all(dim=1)
+    ops_a = int(pairs.sum()) * capsule.OPS_PER_PAIR
+    ops_b = (batch * dof * capsule.OPS_PER_DOF + int(valid.sum()) * (
+        J * capsule.OPS_PER_JOINT + C * capsule.OPS_PER_CAPSULE)
+        + int(pairs[valid].sum()) * capsule.OPS_PER_PAIR)
+    scene_bytes = 4 * 6 * O + O
+    bytes_a = 4 * (2 * batch * C * 3 + C) + scene_bytes + batch
+    bytes_b = 4 * batch * dof + 4 * sum(capsule.packed_lengths(J, C, dof)) + \
+        scene_bytes + batch * 5
+    t["A bound"], t["A bound_by"] = bound_ms(ops_a, bytes_a)
+    t["B bound"], t["B bound_by"] = bound_ms(ops_b, bytes_b)
+    all_pair_ops = batch * C * n_active * capsule.OPS_PER_PAIR
+    t["A bound all pairs"], _ = bound_ms(all_pair_ops, bytes_a)
+    t["B bound all pairs"], _ = bound_ms(
+        all_pair_ops + batch * (J * capsule.OPS_PER_JOINT + C * capsule.OPS_PER_CAPSULE
+                              + dof * capsule.OPS_PER_DOF), bytes_b)
+    print(
+        f"  B={batch} (kuka7 problem {env.index}, C={C} active={n_active}, "
+        f"pairs needed {int(pairs.sum())} of {batch * C * n_active}; {card})\n"
+        f"    capsules_hit: wrapper {t['A']:.4f} ms, bare {t['A bare']:.4f} ms, "
+        f"plain {t['A plain']:.4f} ms, bound {t['A bound']:.3g} ms ({t['A bound_by']}; "
+        f"all pairs {t['A bound all pairs']:.3g} ms)\n"
+        f"    chain_states_free: wrapper {t['B']:.4f} ms, bare {t['B bare']:.4f} ms, "
+        f"plain {t['B plain']:.4f} ms, torch FK + capsules_hit {t['torch FK + A']:.4f} ms, "
+        f"bound {t['B bound']:.3g} ms ({t['B bound_by']}; all pairs "
+        f"{t['B bound all pairs']:.3g} ms)\n"
+        f"    aten ops queued per call: chain_states_free {t['B ops']}, "
+        f"torch FK + capsules_hit {t['torch FK + A ops']}",
+        flush=True,
+    )
+    return t
 
 
 def stage_breakdown(env, model, model_s) -> dict:
@@ -238,9 +459,10 @@ def main() -> int:
 
     from gnn_motion_planning_tpu_torch.api.eval_gnn import eval_gnn
     from gnn_motion_planning_tpu_torch.api.registry import str2name
+    from gnn_motion_planning_tpu_torch.envs.kuka import KukaEnv
     from gnn_motion_planning_tpu_torch.ops import capsule
     from gnn_motion_planning_tpu_torch.utils import geomcore
-    from gnn_motion_planning_tpu_torch.utils.build import BUILD_SECONDS
+    from gnn_motion_planning_tpu_torch.utils.build import BUILD_LOGS, BUILD_SECONDS
 
     dev = torch.device("cuda")
     card = card_line()
@@ -256,27 +478,53 @@ def main() -> int:
                 b.result()
         for name, secs in sorted(BUILD_SECONDS.items()):
             print(f"  built {name} in {secs:.2f}s", flush=True)
+        for line in BUILD_LOGS["capsules_hit"].splitlines():  # nvcc -Xptxas -v
+            if line.strip():
+                print(f"  {line.strip()}", flush=True)
 
-    with phase("1 kernel against plain version"):
+    with phase("1 kernels against plain versions"):
         env, model, _, model_s, _ = str2name("kuka7", device=dev)
         env.init_new_problem(INDEXES[0])
         main_args = kuka7_scene(env, 4096)
         diffs = [check_kernel(f"random scene seed {seed}", random_scene(seed, dev)) for seed in (0, 1)]
         diffs.append(check_kernel("kuka7 problem 2000", main_args))
         # decisions are 0/1, so the largest absolute error is 1 if any differ
-        max_abs_err = int(max(diffs) > 0)
-        if max_abs_err:
-            raise AssertionError(f"kernel and plain version differ on {diffs} decisions")
+        max_abs_err = {"capsules_hit": int(max(diffs) > 0)}
+        if max_abs_err["capsules_hit"]:
+            raise AssertionError(f"capsules_hit and its plain version differ on {diffs} decisions")
+
+        env13 = KukaEnv(kuka_file="kuka_iiwa/model_3.urdf",
+                        map_file="maze_files/kukas_13_3000.pkl", device=dev)
+        env13.init_new_problem(INDEXES[0])
+        checks = []
+        for batch in (4096, 31, 1):
+            qs = chain_configs(env, batch, seed=batch)
+            if batch == 4096:
+                qs[7, 3] = float("nan")  # NaN is out of limits
+            checks.append(check_chain(f"kuka7 problem 2000 B={batch}", env, qs))
+        checks.append(check_chain("kuka13 problem 2000 B=4096", env13,
+                                  chain_configs(env13, 4096, seed=13)))
+        n_chain_diff = sum(n for n, _ in checks)
+        max_abs_err["chain_states_free"] = int(n_chain_diff > 0)
+        print(f"  chain_states_free endpoint max diff from capsules_world: "
+              f"{max(e for _, e in checks):.3g}", flush=True)
+        if n_chain_diff:
+            raise AssertionError(
+                f"chain_states_free and its plain version differ: {[n for n, _ in checks]}")
 
     with phase("2 eval_gnn kuka7 end to end"):
-        capsule.LAUNCHES["capsules_hit"] = 0
+        for name in capsule.LAUNCHES:
+            capsule.LAUNCHES[name] = 0
         rows: list = []
         out = eval_gnn("kuka7", SEED, env, INDEXES, model=model, model_s=model_s,
                        batch=500, t_max=500, k=30, rows=rows)
-        launches = capsule.LAUNCHES["capsules_hit"]
-        print(f"  capsules_hit launches on the main path: {launches}", flush=True)
-        if launches <= 0:
-            raise AssertionError("the main path never launched capsules_hit")
+        launches = dict(capsule.LAUNCHES)
+        for name, n in launches.items():
+            print(f"  {name} launches on the main path: {n}", flush=True)
+        if launches["chain_states_free"] <= 0:
+            raise AssertionError("the main path never launched chain_states_free")
+        if launches["capsules_hit"] != 0:
+            raise AssertionError("the main path ran torch FK and capsules_hit, not the fused kernel")
         jax_rows = {r["index"]: r for r in json.loads(JAX_ROWS.read_text())["rows"]}
         agree = 0
         for row, smooth_path in zip(rows, out[6]):
@@ -303,41 +551,35 @@ def main() -> int:
             raise AssertionError("no problem solved")
 
     with phase("3 timing"):
-        p0, p1, r, centers, halfs, mask = main_args
-        kernel_ms, plain_ms = time_pair(
-            lambda: capsule.capsules_hit(*main_args),
-            lambda: capsule.capsules_hit_reference(*main_args),
-        )
-        B, C = p0.shape[:2]
-        n_active = int(mask.sum())
-        flops = B * C * n_active * capsule.OPS_PER_PAIR
-        O = centers.shape[0]
-        # each input read once (p0, p1, r, centers, halfs, mask), the output written once
-        nbytes = 4 * (2 * B * C * 3 + C + 2 * O * 3) + O + 4 * B
-        ops_ms = flops / PEAK_FP32_FLOPS * 1e3
-        bytes_ms = nbytes / PEAK_BYTES_PER_S * 1e3
-        bare_ms = kernel_only_ms(main_args)
+        env.init_new_problem(INDEXES[0])  # phase 2 left the env on another problem
+        timings = {batch: time_batch(env, batch, card) for batch in (4096, 31, 1)}
+        for batch in (1, 31, 256, 1024, 2048, 4096):
+            lane_sweep("kuka7 problem 2000", env, batch)
+        env.init_new_problem(INDEXES[-1])
+        lane_sweep(f"kuka7 problem {INDEXES[-1]}", env)
+        env.init_new_problem(INDEXES[0])
+        lane_sweep("kuka13 problem 2000", env13)
+        del env13
         for stage, secs in stage_breakdown(env, model, model_s).items():
             print(f"  stage {stage}: {secs / len(INDEXES):.4f} s per problem", flush=True)
-        print(f"  capsules_hit B={B} C={C} O={O} active={n_active}: "
-              f"wrapper {kernel_ms:.4f} ms per call, plain {plain_ms:.4f} ms per call, "
-              f"bare kernel {bare_ms:.4f} ms per launch, bound {max(ops_ms, bytes_ms):.4f} ms "
-              f"({card})", flush=True)
 
     faulthandler.cancel_dump_traceback_later()
+    at_4096 = timings[4096]
+    source = "gnn_motion_planning_tpu_torch/csrc/capsules_hit.cu"
+    replaces = "gnn_motion_planning_tpu/ops/pallas_capsule.py:120"
     print(json.dumps({"kernels": [{
-        "name": "capsules_hit",
+        "name": name,
         "route": "cuda",
-        "source": "gnn_motion_planning_tpu_torch/csrc/capsules_hit.cu",
-        "replaces": "gnn_motion_planning_tpu/ops/pallas_capsule.py:120",
-        "launches": launches,
-        "max_abs_err": max_abs_err,
-        "ms": kernel_ms,
-        "plain_ms": plain_ms,
-        "bound_ms": max(ops_ms, bytes_ms),
-        "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
+        "source": source,
+        "replaces": replaces,
+        "launches": launches[name],
+        "max_abs_err": max_abs_err[name],
+        "ms": at_4096[key],
+        "plain_ms": at_4096[f"{key} plain"],
+        "bound_ms": at_4096[f"{key} bound"],
+        "bound_by": at_4096[f"{key} bound_by"],
         "library_ms": None,
-    }]}), flush=True)
+    } for name, key in (("capsules_hit", "A"), ("chain_states_free", "B"))]}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

@@ -3,11 +3,12 @@
 Port of gnn_motion_planning_tpu/envs/kuka.py for kuka7. Problems are the
 pickled (obstacles(halfExtents, basePosition), start, goal, demo_path)
 lists; the robot is a capsule decomposition of the URDF meshes with the
-calibrated radii; the device oracle is batched FK in torch plus
-``ops/capsule.py::capsules_hit``. Host sampling goes through the port's own
-build of the float64 native core (utils/geomcore.py), as the JAX package's
-does, so the accepted-sample stream is the same. A missing native core is
-an error, never a silent switch to another oracle.
+calibrated radii. The device oracle is ``ops/capsule.py::chain_states_free``
+(limits, FK and the narrow phase): one launch of its fused kernel on the
+card, its plain PyTorch version on the CPU. Host sampling goes through the
+port's own build of the float64 native core (utils/geomcore.py), as the JAX
+package's does, so the accepted-sample stream is the same. A missing native
+core is an error, never a silent switch to another oracle.
 """
 
 from __future__ import annotations
@@ -22,14 +23,9 @@ import torch
 
 from gnn_motion_planning_tpu_torch import resolve_device
 from gnn_motion_planning_tpu_torch.envs.base import EnvKernels, K_CHEAP, make_fixed_step_edge_free
-from gnn_motion_planning_tpu_torch.envs.kinematics import (
-    ChainParams,
-    capsules_world,
-    chain_from_model,
-    sum_last,
-)
+from gnn_motion_planning_tpu_torch.envs.kinematics import ChainParams, chain_from_model, sum_last
 from gnn_motion_planning_tpu_torch.envs.urdf import parse_urdf
-from gnn_motion_planning_tpu_torch.ops.capsule import capsules_hit
+from gnn_motion_planning_tpu_torch.ops.capsule import chain_states_free, pack_chain
 from gnn_motion_planning_tpu_torch.utils.assets import asset_path
 from gnn_motion_planning_tpu_torch.utils.geomcore import GeomChain
 
@@ -78,14 +74,10 @@ def make_chain_kernels(chain: ChainParams, rrt_eps: float, k_max: int) -> EnvKer
     """EnvKernels for a serial-chain robot among AABB obstacles."""
 
     lower, upper = chain.lower, chain.upper
+    packed = pack_chain(chain)
 
     def batch_state_free(scene: BoxScene, qs: torch.Tensor):
-        valid = ((qs >= lower) & (qs <= upper)).all(dim=1)
-        p0, p1, r = capsules_world(chain, qs)
-        hit = capsules_hit(
-            p0.contiguous(), p1.contiguous(), r, scene.centers, scene.halfs, scene.mask
-        )
-        return valid & ~hit, valid.to(torch.int32)
+        return chain_states_free(qs.contiguous(), packed, scene)
 
     def distance(a, b):
         b = torch.minimum(torch.maximum(b, lower), upper)

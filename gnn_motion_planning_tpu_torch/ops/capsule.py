@@ -1,13 +1,28 @@
 """Batched capsule-vs-AABB contact decisions: the port of the TPU kernel
-``gnn_motion_planning_tpu/ops/pallas_capsule.py::capsules_hit``.
+``gnn_motion_planning_tpu/ops/pallas_capsule.py::capsules_hit`` and of the
+forward kinematics that XLA fused around it.
 
-``capsules_hit`` answers, for each of B configurations, whether any of its
-C capsules (segment p0 -> p1, radius r) comes closer than r to any active
-axis-aligned box. For a CUDA tensor it launches the hand-written kernel in
-``csrc/capsules_hit.cu``, built at first use with plain ``nvcc`` and bound
-with ``ctypes``; for a CPU tensor it runs ``capsules_hit_reference``, the
-plain PyTorch version of the same arithmetic. There is no fallback from one
-to the other: a CUDA tensor launches the kernel or raises.
+Two entry points share one narrow phase in ``csrc/capsules_hit.cu``, built
+at first use with plain ``nvcc`` and bound with ``ctypes``:
+
+- ``capsules_hit`` answers, for each of B configurations, whether any of
+  its C capsules (segment p0 -> p1, radius r) comes closer than r to any
+  active axis-aligned box;
+- ``chain_states_free`` takes the joint configurations themselves and
+  returns ``(free, n_checks)`` as ``envs/kuka.py``'s ``batch_state_free``
+  does: joint limits, forward kinematics and the narrow phase in one launch.
+
+For a CUDA tensor each launches its kernel; for a CPU tensor each runs its
+plain PyTorch version (``capsules_hit_reference``,
+``chain_states_free_reference``). There is no fallback from one to the
+other: a CUDA tensor launches the kernel or raises.
+
+This module owns the layout in which ``chain_states_free`` reads a chain
+(``PackedChain``, ``pack_chain``, ``unpack_chain``, ``packed_lengths``); the
+kernel's source mirrors it. The plain version of a kernel that fuses
+forward kinematics is ``envs/kinematics.py::capsules_world`` followed by the
+plain narrow phase, so this module imports that leaf module, and nothing
+else of ``envs``.
 """
 
 from __future__ import annotations
@@ -16,24 +31,49 @@ import ctypes
 import os
 import shutil
 from pathlib import Path
+from typing import NamedTuple, Tuple
 
 import torch
 
+from gnn_motion_planning_tpu_torch.envs.kinematics import ChainParams, capsules_world
 from gnn_motion_planning_tpu_torch.utils.build import build_shared_library
 
 _EPS = 1e-12
 CSRC = Path(__file__).resolve().parents[1] / "csrc" / "capsules_hit.cu"
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-fmad=false", "-shared", "-Xcompiler", "-fPIC",
+    "-fmad=false", "-Xptxas", "-v", "-shared", "-Xcompiler", "-fPIC",
 ]
-MAX_BOXES = 1024  # dynamic shared memory: 7 floats per box
-# fp32 operations per (state, capsule, active box), counted from the kernel
-# (each add, multiply, divide, compare, select, min, max and abs is one)
-OPS_PER_PAIR = 680
+# the most each launch takes; a block's shared memory then stays under the
+# H100's 227 KB: 6 floats a box, and for chain_states_free the chain and,
+# for each of up to 16 configurations, 12 (J + 1) + 9 J + 6 C floats
+MAX_BOXES = 1024
+MAX_JOINTS = 16
+MAX_CAPSULES = 64
+# lanes that work on one configuration: 16 or 32 (a whole warp). Up to a
+# few thousand configurations the card has warps to spare, and a warp each
+# hides latency best; at 4096 a warp each fills nearly every resident warp
+# slot of the 132 SMs, issue sets the pace, and groups of 16 win by leaving
+# fewer lanes idle in the last round (kuka7: 72 pairs, 5 rounds of 16 or 3
+# of 32). Measured on the card: chip_smoke.py phase 3, "lanes sweep";
+# PERF.md section 6.
+LANE_CHOICES = (16, 32)
+LANES_16_FROM = 4096
 
-# kernel launches since the last reset, by kernel name
-LAUNCHES = {"capsules_hit": 0}
+# fp32 operations counted from the kernel, each add, multiply, divide,
+# compare, select, min, max, abs, cos and sin being one:
+# per (state, capsule, active box) in the narrow phase
+OPS_PER_PAIR = 680
+# per joint in FK: Rodrigues (cos, sin, 1 - c, 9 entries: 34 + 2), two
+# 3x3 products (2 x 45), R @ origin_trans + t (18)
+OPS_PER_JOINT = 144
+# per capsule: two R @ p + t (2 x 18) and v = p1 - p0 (3)
+OPS_PER_CAPSULE = 39
+# per joint angle: two limit comparisons and the and
+OPS_PER_DOF = 3
+
+# kernel launches since the last reset, by entry point
+LAUNCHES = {"capsules_hit": 0, "chain_states_free": 0}
 
 _lib = None
 
@@ -56,12 +96,78 @@ def load_library():
     if _lib is None:
         path = build_shared_library(CSRC, "capsules_hit", [_nvcc()], NVCC_FLAGS)
         lib = ctypes.CDLL(str(path))
-        lib.capsules_hit_launch.restype = ctypes.c_int
-        lib.capsules_hit_launch.argtypes = [ctypes.c_void_p] * 6 + [
-            ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
-        ]
+        ptr, i32 = ctypes.c_void_p, ctypes.c_int
+        lib.capsules_hit_launch.restype = i32
+        lib.capsules_hit_launch.argtypes = [ptr] * 6 + [i32, i32, i32, ptr, i32, ptr]
+        lib.chain_states_free_launch.restype = i32
+        lib.chain_states_free_launch.argtypes = (
+            [ptr, i32, i32, ptr, ptr, i32, i32, ptr, ptr, ptr, i32] + [ptr] * 4 + [i32, ptr]
+        )
         _lib = lib
     return _lib
+
+
+class PackedChain(NamedTuple):
+    """A ChainParams in two flat buffers on the chain's device, the form in
+    which the fused kernel reads it.
+
+    floats (float32): origin_rot (J*9) | origin_trans (J*3) | axis (J*3) |
+        cap_p0 (C*3) | cap_p1 (C*3) | cap_r (C) | lower (dof) | upper (dof)
+    ints (int32): q_index (J) | parent_frame (J) | cap_link (C)
+    sizes: (J, C, dof), kept on the host so that a launch reads nothing
+        back from the device.
+    """
+
+    floats: torch.Tensor
+    ints: torch.Tensor
+    sizes: Tuple[int, int, int]
+
+
+def _float_parts(J: int, C: int, dof: int):
+    return [9 * J, 3 * J, 3 * J, 3 * C, 3 * C, C, dof, dof]
+
+
+def packed_lengths(J: int, C: int, dof: int) -> Tuple[int, int]:
+    """(floats, ints) lengths of a PackedChain of J joints, C capsules and
+    dof joint angles."""
+
+    return sum(_float_parts(J, C, dof)), 2 * J + C
+
+
+def pack_chain(chain: ChainParams) -> PackedChain:
+    J, C, dof = chain.origin_rot.shape[0], chain.cap_r.shape[0], chain.lower.shape[0]
+    floats = torch.cat([
+        t.reshape(-1).to(torch.float32)
+        for t in (chain.origin_rot, chain.origin_trans, chain.axis, chain.cap_p0,
+                  chain.cap_p1, chain.cap_r, chain.lower, chain.upper)
+    ])
+    dev = chain.cap_link.device
+    ints = torch.cat([
+        torch.tensor(chain.q_index + chain.parent_frame, dtype=torch.int32, device=dev),
+        chain.cap_link.to(torch.int32),
+    ])
+    return PackedChain(floats, ints, (J, C, dof))
+
+
+def unpack_chain(packed: PackedChain) -> ChainParams:
+    J, C, dof = packed.sizes
+    rot, trans, axis, p0, p1, r, lower, upper = torch.split(
+        packed.floats, _float_parts(J, C, dof)
+    )
+    ints = packed.ints.tolist()
+    return ChainParams(
+        origin_rot=rot.reshape(J, 3, 3),
+        origin_trans=trans.reshape(J, 3),
+        axis=axis.reshape(J, 3),
+        cap_link=packed.ints[2 * J:].to(torch.long),
+        cap_p0=p0.reshape(C, 3),
+        cap_p1=p1.reshape(C, 3),
+        cap_r=r,
+        lower=lower,
+        upper=upper,
+        q_index=tuple(ints[:J]),
+        parent_frame=tuple(ints[J:2 * J]),
+    )
 
 
 def _seg_box_contact(u, v, h, r2):
@@ -121,9 +227,9 @@ def _seg_box_contact(u, v, h, r2):
     return d2 < r2
 
 
-def capsules_hit_reference(p0, p1, r, centers, halfs, mask):
-    """Plain PyTorch version: (B,) bool from (B, C, 3) endpoints, (C,) radii,
-    (O, 3) centres and half-extents and an (O,) active-box mask."""
+def capsule_contacts(p0, p1, r, centers, halfs, mask):
+    """(B, C, A) bool: contact of every capsule with every active box, the
+    A active boxes in index order."""
 
     # inactive boxes never make contact: evaluate the active ones only
     active = mask.nonzero().flatten()
@@ -133,7 +239,26 @@ def capsules_hit_reference(p0, p1, r, centers, halfs, mask):
     vv = [v[:, :, None, i].expand_as(u[0]) for i in range(3)]
     h = [halfs[None, None, :, i] for i in range(3)]
     r2 = (r * r)[None, :, None]
-    return _seg_box_contact(u, vv, h, r2).flatten(1).any(dim=1)
+    return _seg_box_contact(u, vv, h, r2)
+
+
+def capsules_hit_reference(p0, p1, r, centers, halfs, mask):
+    """Plain PyTorch version: (B,) bool from (B, C, 3) endpoints, (C,) radii,
+    (O, 3) centres and half-extents and an (O,) active-box mask."""
+
+    return capsule_contacts(p0, p1, r, centers, halfs, mask).flatten(1).any(dim=1)
+
+
+def chain_states_free_reference(qs, packed: PackedChain, scene):
+    """Plain PyTorch version of ``chain_states_free``: the chain is read back
+    from its packed buffers, then limits, ``capsules_world`` and
+    ``capsules_hit_reference`` as ``envs/kuka.py``'s CPU path runs them."""
+
+    chain = unpack_chain(packed)
+    valid = ((qs >= chain.lower) & (qs <= chain.upper)).all(dim=1)
+    p0, p1, r = capsules_world(chain, qs)
+    hit = capsules_hit_reference(p0, p1, r, scene.centers, scene.halfs, scene.mask)
+    return valid & ~hit, valid.to(torch.int32)
 
 
 def _check(name, t, dtype, shape, device):
@@ -145,6 +270,26 @@ def _check(name, t, dtype, shape, device):
         raise ValueError(f"{name} has shape {tuple(t.shape)}, expected {tuple(shape)}")
     if not t.is_contiguous():
         raise ValueError(f"{name} must be contiguous")
+
+
+def _launch(name: str, device, *args) -> None:
+    """Launch entry point ``name`` on the device's current stream; raise on a
+    launch error, count a launch otherwise."""
+
+    lib = load_library()
+    with torch.cuda.device(device):  # the launch goes to the current device
+        err = getattr(lib, f"{name}_launch")(
+            *args, torch.cuda.current_stream(device).cuda_stream
+        )
+    if err != 0:
+        raise RuntimeError(f"{name} kernel launch failed: cudaError {err}")
+    LAUNCHES[name] += 1
+
+
+def lanes_for(batch: int) -> int:
+    """Lanes a configuration, in both kernels, for a batch of ``batch``."""
+
+    return 16 if batch >= LANES_16_FROM else 32
 
 
 def capsules_hit(p0, p1, r, centers, halfs, mask):
@@ -170,17 +315,58 @@ def capsules_hit(p0, p1, r, centers, halfs, mask):
     _check("mask", mask, torch.bool, (O,), dev)
     if O > MAX_BOXES:
         raise ValueError(f"capsules_hit takes at most {MAX_BOXES} boxes, got {O}")
-    out = torch.zeros(B, dtype=torch.int32, device=dev)
-    if B == 0 or C == 0 or O == 0:
-        return out.bool()
-    lib = load_library()
-    with torch.cuda.device(dev):  # the launch goes to the current device
-        err = lib.capsules_hit_launch(
-            p0.data_ptr(), p1.data_ptr(), r.data_ptr(), centers.data_ptr(),
-            halfs.data_ptr(), mask.data_ptr(), B, C, O, out.data_ptr(),
-            torch.cuda.current_stream(dev).cuda_stream,
+    out = torch.empty(B, dtype=torch.bool, device=dev)
+    if B == 0:
+        return out
+    _launch("capsules_hit", dev, p0.data_ptr(), p1.data_ptr(), r.data_ptr(),
+            centers.data_ptr(), halfs.data_ptr(), mask.data_ptr(), B, C, O, out.data_ptr(),
+            lanes_for(B))
+    return out
+
+
+def chain_states_free(qs, packed: PackedChain, scene, endpoints=None):
+    """(free (B,) bool, n_checks (B,) int32) for joint configurations qs.
+
+    qs: (B, dof) float32; packed: ``pack_chain`` of the robot; scene: centers, halfs (O, 3) float32 and mask (O,) bool. A
+    configuration is valid when every joint lies within its limits (NaN is
+    not); free = valid and no capsule touches an active box; n_checks =
+    valid. CPU tensors take the plain version; CUDA tensors launch the fused
+    kernel (and count the launch).
+    ``endpoints``, two (B, C, 3) float32
+    CUDA tensors or None, receive the kernel's capsule endpoints for every
+    configuration: a diagnostic, None on the main path.
+    """
+
+    if qs.device.type == "cpu":
+        return chain_states_free_reference(qs, packed, scene)
+    if qs.device.type != "cuda":
+        raise ValueError(f"chain_states_free has no kernel for {qs.device}")
+    J, C, dof = packed.sizes
+    B, O = qs.shape[0], scene.centers.shape[0]
+    dev = qs.device
+    _check("qs", qs, torch.float32, (B, dof), dev)
+    n_floats, n_ints = packed_lengths(J, C, dof)
+    _check("packed floats", packed.floats, torch.float32, (n_floats,), dev)
+    _check("packed ints", packed.ints, torch.int32, (n_ints,), dev)
+    _check("centers", scene.centers, torch.float32, (O, 3), dev)
+    _check("halfs", scene.halfs, torch.float32, (O, 3), dev)
+    _check("mask", scene.mask, torch.bool, (O,), dev)
+    if J > MAX_JOINTS or dof > J or C > MAX_CAPSULES or O > MAX_BOXES:
+        raise ValueError(
+            f"chain_states_free takes at most {MAX_JOINTS} joints, {MAX_CAPSULES} "
+            f"capsules and {MAX_BOXES} boxes, got J={J} dof={dof} C={C} O={O}"
         )
-    if err != 0:
-        raise RuntimeError(f"capsules_hit kernel launch failed: cudaError {err}")
-    LAUNCHES["capsules_hit"] += 1
-    return out.bool()
+    ptr0 = ptr1 = None
+    if endpoints is not None:
+        for name, t in zip(("endpoints p0", "endpoints p1"), endpoints):
+            _check(name, t, torch.float32, (B, C, 3), dev)
+        ptr0, ptr1 = endpoints[0].data_ptr(), endpoints[1].data_ptr()
+    free = torch.empty(B, dtype=torch.bool, device=dev)
+    n_checks = torch.empty(B, dtype=torch.int32, device=dev)
+    if B == 0:
+        return free, n_checks
+    _launch("chain_states_free", dev, qs.data_ptr(), B, dof, packed.floats.data_ptr(),
+            packed.ints.data_ptr(), J, C, scene.centers.data_ptr(), scene.halfs.data_ptr(),
+            scene.mask.data_ptr(), O, free.data_ptr(), n_checks.data_ptr(), ptr0, ptr1,
+            lanes_for(B))
+    return free, n_checks

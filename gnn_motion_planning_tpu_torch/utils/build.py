@@ -3,7 +3,8 @@
 The library's name carries a hash of the source and the command, so a stale
 build is never loaded, and the compiler writes to a private temporary name
 that is renamed into place, so concurrent processes cannot load a half
-written file. A failed build raises with the compiler's output.
+written file. A failed build raises with the compiler's output; a build
+that succeeds keeps it beside the library, in ``<library>.log``.
 """
 
 from __future__ import annotations
@@ -18,6 +19,8 @@ from gnn_motion_planning_tpu_torch.utils.assets import BUILD_DIR
 
 # seconds each library took to build in this process (0.0: already built)
 BUILD_SECONDS: dict = {}
+# the compiler's output for each library built or loaded in this process
+BUILD_LOGS: dict = {}
 
 
 def build_shared_library(src: Path, name: str, compiler: list, flags: list) -> Path:
@@ -25,8 +28,10 @@ def build_shared_library(src: Path, name: str, compiler: list, flags: list) -> P
 
     key = hashlib.sha256(src.read_bytes() + " ".join(compiler + flags).encode())
     lib = BUILD_DIR / f"lib{name}-{key.hexdigest()[:16]}.so"
+    log = lib.with_name(lib.name + ".log")
     if lib.exists():
         BUILD_SECONDS.setdefault(name, 0.0)
+        BUILD_LOGS[name] = log.read_text() if log.exists() else ""
         return lib
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = lib.with_name(f"{lib.name}.{os.getpid()}.tmp")
@@ -42,6 +47,8 @@ def build_shared_library(src: Path, name: str, compiler: list, flags: list) -> P
             f"building {src.name} failed ({' '.join(compiler + flags)}):\n"
             f"{proc.stdout}\n{proc.stderr}"
         )
+    log.write_text(proc.stdout + proc.stderr)
     os.replace(tmp, lib)
     BUILD_SECONDS[name] = time.perf_counter() - t0
+    BUILD_LOGS[name] = proc.stdout + proc.stderr
     return lib

@@ -88,13 +88,16 @@ def test_seg_box_sq_dist_matches_jax():
     np.testing.assert_allclose(got, want, rtol=1e-6, atol=1e-12)
 
 
-def test_cpu_tensors_take_the_plain_version_without_counting():
+def test_cpu_tensors_take_the_plain_version_without_counting(monkeypatch):
+    def no_build():
+        raise AssertionError("a CPU call built or loaded the kernel")
+
+    monkeypatch.setattr(capsule, "load_library", no_build)
     args = [torch.as_tensor(a) for a in _random_scene(0)]
     before = dict(capsule.LAUNCHES)
     got = capsule.capsules_hit(*args)
     assert torch.equal(got, capsule.capsules_hit_reference(*args))
     assert capsule.LAUNCHES == before
-    assert capsule._lib is None  # no kernel was built for a CPU call
 
 
 def test_other_devices_raise():
@@ -103,10 +106,21 @@ def test_other_devices_raise():
         capsule.capsules_hit(*args)
 
 
+def test_lane_width_follows_the_batch():
+    """Whole warps a configuration below LANES_16_FROM, groups of 16 from
+    there on: both widths the kernels are built for, and both used."""
+
+    edge = capsule.LANES_16_FROM
+    widths = {b: capsule.lanes_for(b) for b in (1, 31, edge - 1, edge, 1 << 20)}
+    assert set(widths.values()) == set(capsule.LANE_CHOICES) == {16, 32}
+    assert widths[edge - 1] == 32 and widths[edge] == 16
+
+
 @pytest.mark.cuda
 def test_kernel_equals_plain_version_on_the_card():
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU; run: python -m pytest -m cuda tests/test_torch_port_*.py")
+    # B = 200 runs whole warps a configuration, B = 4096 groups of 16 lanes
     for args in (_random_scene(0), _random_scene(1), _kuka7_scene(4096)):
         t = [torch.as_tensor(a, device="cuda") for a in args]
         n0 = capsule.LAUNCHES["capsules_hit"]

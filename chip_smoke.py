@@ -14,8 +14,9 @@ Phases, each bracketed by a progress line with the elapsed seconds:
    4096 runs groups of 16 lanes a configuration, smaller batches whole
    warps, ``ops/capsule.py::lanes_for``). ``capsules_hit`` (entry A): two random scenes and real kuka7 capsules at
    B = 4096, C = 24, O = 16. ``chain_states_free`` (entry B): kuka7 problem
-   2000 at B = 4096, 31 and 1 and the kuka13 chain (J = 13, C = 42) in
-   kuka13 problem 2000's scene at B = 4096, configurations uniform in the
+   2000 and the kuka13 chain (J = 13, C = 42) in kuka13 problem 2000's
+   scene, each at every batch its main path gives the kernel (B = 4096,
+   2 + k_max = 31 or 41, and 1), configurations uniform in the
    joint limits with every 20th outside them (and a NaN row), with and
    without the endpoint output. Decisions and check counts must be equal;
    the largest difference of the kernel's capsule endpoints from
@@ -28,6 +29,10 @@ Phases, each bracketed by a progress line with the elapsed seconds:
    (tests/data/torch_port_kuka7_jax_rows.json); a difference there is
    reported, not fatal (an order-of-summation difference can flip a
    near-tie argmax), but every path must be finite and join start to goal.
+   Phase 1 also holds the maze oracle on the card against the same
+   functions on the CPU: 4096 points and 4096 edges in 2-D (maze2easy
+   problem 2000), 4096 sticks and 256 edges in 3-D (maze3 problem 2000);
+   decisions and counts must be equal.
 3. timing at the main path's batches, B = 4096 (flat projection), 31 (edge
    check) and 1 (goal state), kuka7 problem 2000: each entry point's
    wrapper against its plain version, and entry B against the composition
@@ -37,7 +42,19 @@ Phases, each bracketed by a progress line with the elapsed seconds:
    kernels at each width of lane group: kuka7 problem 2000 at B = 1 to
    4096, and at B = 4096 kuka7 problem 2004 (6 active boxes) and kuka13
    problem 2000 (C = 42, 8 active boxes). Then seconds
-   per stage of eval_gnn (a second pass over the same problems).
+   per stage of eval_gnn (a second pass over the same problems) and the
+   device busy share of problem 2000 under torch.profiler.
+4. end to end: ``eval_gnn`` on maze2easy, maze2hard, maze3 and kuka13 at
+   full width, the first problems of each config's JAX rows fixture
+   (tests/data/torch_port_<config>_jax_rows.json), printed beside them with
+   the count that agrees (reported, as in phase 2); every path checked as
+   in phase 2; kuka13 must launch ``chain_states_free`` and not
+   ``capsules_hit``. Then, for maze2easy and maze3, seconds per stage (a
+   second pass), the oracle's own seconds in a third pass that
+   synchronises around every oracle call, and the oracle's time and aten
+   ops per call at the main path's batches; for every config but
+   maze2hard, the device busy share of its first problem under
+   torch.profiler.
 
 A watchdog ends a stalled run with every thread's stack and a non-zero
 exit. Without a CUDA device, or outside a checkout of the repository, the
@@ -59,8 +76,9 @@ from pathlib import Path
 
 WATCHDOG_SECONDS = 480
 REPO = Path(__file__).resolve().parent
-JAX_ROWS = REPO / "tests" / "data" / "torch_port_kuka7_jax_rows.json"
 INDEXES = [2000, 2001, 2002, 2003, 2004]
+PHASE4_CONFIGS = ("maze2easy", "maze2hard", "maze3", "kuka13")
+PHASE4_PROBLEMS = 3
 SEED = 1234
 # H100 SXM peaks (NVIDIA data sheet): fp32 outside the tensor cores, HBM3
 PEAK_FP32_FLOPS = 67e12
@@ -401,14 +419,17 @@ def time_batch(env, batch: int, card: str) -> dict:
     return t
 
 
-def stage_breakdown(env, model, model_s) -> dict:
-    """Seconds per stage of eval_gnn over INDEXES, from host clocks around
-    each stage with a device synchronise on both sides (a second pass over
-    the same problems, after the main path's own run)."""
+def stage_breakdown(config: str, env, model, model_s, indexes, oracle: bool = False) -> dict:
+    """Seconds per stage of eval_gnn over ``indexes``, from host clocks
+    around each stage with a device synchronise on both sides (a second
+    pass over the same problems, after the main path's own run). With
+    ``oracle``, the env's oracle calls are timed the same way too, which
+    adds a synchronise to every search pop: their sum bounds the oracle's
+    share from above."""
 
     import torch
 
-    from gnn_motion_planning_tpu_torch.api import eval_gnn as driver
+    from gnn_motion_planning_tpu_torch.api import eval_gnn as protocol
 
     totals: dict = {}
 
@@ -419,28 +440,182 @@ def stage_breakdown(env, model, model_s) -> dict:
             out = fn(*args, **kwargs)
             torch.cuda.synchronize()
             totals[name] = totals.get(name, 0.0) + time.perf_counter() - t0
+            totals[name + " calls"] = totals.get(name + " calls", 0) + 1
             return out
         return wrapper
 
-    planner = driver.get_planner(env)
-    saved = (driver.build_rgg_edges, driver.explorer_forward, driver.smoother_forward,
-             planner.round_core, planner.project_cheap, env.sample_n_points)
-    driver.build_rgg_edges = timed("rgg build", driver.build_rgg_edges)
-    driver.explorer_forward = timed("explorer forward", driver.explorer_forward)
-    driver.smoother_forward = timed("smoother forward", driver.smoother_forward)
+    saved_kernels, saved_planner = env._kernels, getattr(env, "_torch_planner", None)
+    if oracle:
+        kern = env.kernels()
+        env._kernels = kern._replace(
+            edge_free=timed("oracle edge_free", kern.edge_free),
+            batch_state_free=timed("oracle state_free", kern.batch_state_free))
+        env._torch_planner = None
+    planner = protocol.get_planner(env)
+    saved = (protocol.build_rgg_edges, protocol.explorer_forward, protocol.smoother_forward,
+             planner.round_core, planner.project_cheap)
+    protocol.build_rgg_edges = timed("rgg build", protocol.build_rgg_edges)
+    protocol.explorer_forward = timed("explorer forward", protocol.explorer_forward)
+    protocol.smoother_forward = timed("smoother forward", protocol.smoother_forward)
     planner.round_core = timed("greedy search", planner.round_core)
     planner.project_cheap = timed("projection", planner.project_cheap)
     env.sample_n_points = timed("host sampling", env.sample_n_points)
     t0 = time.perf_counter()
     try:
-        driver.eval_gnn("kuka7", SEED, env, INDEXES, model=model, model_s=model_s,
+        protocol.eval_gnn(config, SEED, env, indexes, model=model, model_s=model_s,
                         batch=500, t_max=500, k=30)
     finally:
-        (driver.build_rgg_edges, driver.explorer_forward, driver.smoother_forward,
-         planner.round_core, planner.project_cheap) = saved[:5]
+        (protocol.build_rgg_edges, protocol.explorer_forward, protocol.smoother_forward,
+         planner.round_core, planner.project_cheap) = saved
         del env.sample_n_points
+        env._kernels, env._torch_planner = saved_kernels, saved_planner
     totals["all"] = time.perf_counter() - t0
     return totals
+
+
+def print_stages(config: str, totals: dict, n: int, card: str) -> None:
+    """Per-problem seconds (and calls) of each stage of ``n`` problems."""
+
+    for stage, secs in totals.items():
+        if not stage.endswith(" calls"):
+            calls = totals.get(stage + " calls")
+            extra = f" ({calls / n:.1f} calls)" if calls else ""
+            print(f"  stage {config} {stage}: {secs / n:.4f} s per problem{extra}", flush=True)
+    print(f"  ({config}: {n} problems, {card})", flush=True)
+
+
+def fixture_rows(config: str) -> list:
+    path = REPO / "tests" / "data" / f"torch_port_{config}_jax_rows.json"
+    return json.loads(path.read_text())["rows"]
+
+
+def report_rows(config: str, env, rows, smooth_paths) -> int:
+    """Print each port row beside the JAX row of the same problem; check
+    every path (finite, from the start, into the goal region). Returns the
+    number of rows that agree with the JAX package."""
+
+    import numpy as np
+
+    jax_rows = {r["index"]: r for r in fixture_rows(config)}
+    agree = 0
+    for row, smooth_path in zip(rows, smooth_paths):
+        ref = jax_rows.get(row["index"])
+        same = ref is not None and all(
+            row[k] == ref[k] for k in ("success", "c_explore", "c_smooth")
+        ) and abs(row["cost"] - ref["cost"]) < 1e-3
+        agree += same
+        print(f"  port {json.dumps(row)}", flush=True)
+        print(f"  jax  {json.dumps(ref)} {'agree' if same else 'DIFFER'}", flush=True)
+        if not math.isfinite(row["cost"]):
+            raise AssertionError(f"{config} problem {row['index']}: cost is not finite")
+        if row["success"]:
+            p = np.asarray(smooth_path)
+            env.init_new_problem(row["index"])
+            if p.ndim != 2 or p.shape[1] != env.config_dim or not np.isfinite(p).all():
+                raise AssertionError(f"{config} problem {row['index']}: bad path {p.shape}")
+            if not np.allclose(p[0], env.init_state, atol=1e-5):
+                raise AssertionError(f"{config} problem {row['index']}: path does not start at init")
+            if np.asarray(env.distance(p[-1], env.goal_state)).max() >= env.RRT_EPS:
+                raise AssertionError(f"{config} problem {row['index']}: path does not reach the goal")
+    print(f"  {config}: rows agreeing with the JAX package: {agree} of {len(rows)}", flush=True)
+    return agree
+
+
+def maze_inputs(dim: int, seed: int, n_states: int, n_edges: int):
+    """Float32 states and edge endpoints for the maze oracle: uniform in
+    slightly more than the limits (some invalid); in 2-D a quarter of the
+    points on a cell boundary or one float32 step beside it, in 3-D half
+    the edges short hops."""
+
+    import numpy as np
+
+    rng = np.random.RandomState(seed)
+    lim = np.array([1.05, 1.05, 0.42])[:dim]
+    states = rng.uniform(-lim, lim, (n_states, dim)).astype(np.float32)
+    qa = rng.uniform(-lim, lim, (n_edges, dim)).astype(np.float32)
+    qb = rng.uniform(-lim, lim, (n_edges, dim)).astype(np.float32)
+    if dim == 2:
+        m = n_edges // 4
+        edge = (-1 + 2 * rng.randint(0, 16, (m, 2)) / 15).astype(np.float32)
+        qa[:m] = np.nextafter(edge, edge + rng.choice(np.array([-1, 0, 1], np.float32), (m, 2)))
+    else:
+        h = n_edges // 2
+        qb[:h] = qa[:h] + rng.uniform(-0.12, 0.12, (h, 3)).astype(np.float32)
+    return states, qa, qb
+
+
+def check_maze_oracle(dev) -> int:
+    """The maze oracle on the card against the same functions on the CPU;
+    returns the number of differing decisions and counts (must be 0)."""
+
+    import torch
+
+    from gnn_motion_planning_tpu_torch.envs import maze
+
+    n_diff = 0
+    for dim, n_edges, fns in ((2, 4096, (maze.point_free_2d, maze.edge_free_2d)),
+                              (3, 256, (maze.stick_free_3d, maze.edge_free_3d))):
+        env = maze.MazeEnv(dim=dim, device="cpu")
+        env.init_new_problem(2000)
+        occ = env.device_scene()
+        states, qa, qb = maze_inputs(dim, 6 + dim, 4096, n_edges)
+        for fn, args in ((fns[0], (states,)), (fns[1], (qa, qb))):
+            want = fn(occ, *(torch.as_tensor(x) for x in args))
+            got = [x.cpu() for x in fn(occ.to(dev), *(torch.as_tensor(x, device=dev) for x in args))]
+            diff = int((got[0] != want[0]).sum()) + int((got[1] != want[1]).sum())
+            n_diff += diff
+            print(f"  {fn.__name__} maze{dim} problem 2000: B={len(args[0])} "
+                  f"free={int(want[0].sum())} checks={int(want[1].sum())} "
+                  f"max checks={int(want[1].max())} differing={diff}", flush=True)
+    return n_diff
+
+
+def device_busy_share(config: str, env, model, model_s, index: int, card: str) -> None:
+    """Device busy share of one problem: the summed time of the device
+    events in a torch.profiler trace of eval_gnn (device activity only,
+    which keeps the trace small) over the problem's wall time (host clock,
+    synchronised). The profiler slows the host, so the share reads low
+    rather than high."""
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from gnn_motion_planning_tpu_torch.api.eval_gnn import eval_gnn
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        eval_gnn(config, SEED, env, [index], model=model, model_s=model_s,
+                 batch=500, t_max=500, k=30)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    device = [e for e in prof.events() if str(e.device_type).endswith("CUDA")]
+    if not device:
+        print(f"  device busy share {config} problem {index}: not measured "
+              f"(no device events in the trace)", flush=True)
+        return
+    busy = sum(e.time_range.elapsed_us() for e in device) / 1e6
+    print(f"  device busy share {config} problem {index}: {busy:.4f} s of device events "
+          f"({len(device)} events) in {wall:.4f} s, {100 * busy / wall:.1f} % "
+          f"(profiled; {card})", flush=True)
+
+
+def time_maze_oracle(env, card: str) -> None:
+    """ms per call of the env's edge check at the main path's batches (a
+    search pop: E = 1; a projection step of a 64-slot path: E = 192), CUDA
+    events around 10 calls, median of 21, and aten ops queued per call."""
+
+    import torch
+
+    kern = env.kernels()
+    scene = env.device_scene()
+    _, qa, qb = maze_inputs(env.config_dim, 11, 1, 192)
+    qa, qb = torch.as_tensor(qa, device=env.device), torch.as_tensor(qb, device=env.device)
+    fns = {E: (lambda E=E: kern.edge_free(scene, qa[:E], qb[:E])) for E in (1, 192)}
+    t = time_turns({f"E={E}": fn for E, fn in fns.items()})
+    ops = {E: count_ops(fn) for E, fn in fns.items()}
+    print(f"  oracle {env} edge_free: " + "; ".join(
+        f"E={E} {t[f'E={E}']:.4f} ms, {ops[E]} aten ops" for E in fns) + f" ({card})", flush=True)
 
 
 def main() -> int:
@@ -454,8 +629,6 @@ def main() -> int:
         print("chip_smoke: run it from a checkout of the repository", file=sys.stderr)
         return 2
     sys.path.insert(0, str(REPO))
-
-    import numpy as np
 
     from gnn_motion_planning_tpu_torch.api.eval_gnn import eval_gnn
     from gnn_motion_planning_tpu_torch.api.registry import str2name
@@ -497,13 +670,14 @@ def main() -> int:
                         map_file="maze_files/kukas_13_3000.pkl", device=dev)
         env13.init_new_problem(INDEXES[0])
         checks = []
-        for batch in (4096, 31, 1):
-            qs = chain_configs(env, batch, seed=batch)
-            if batch == 4096:
-                qs[7, 3] = float("nan")  # NaN is out of limits
-            checks.append(check_chain(f"kuka7 problem 2000 B={batch}", env, qs))
-        checks.append(check_chain("kuka13 problem 2000 B=4096", env13,
-                                  chain_configs(env13, 4096, seed=13)))
+        # every batch the main paths give the kernel: the flat projection,
+        # one search pop's edge (2 + k_max states) and the goal test
+        for arm, arm_env, seed in (("kuka7", env, 0), ("kuka13", env13, 13)):
+            for batch in (4096, 2 + arm_env._k_max(), 1):
+                qs = chain_configs(arm_env, batch, seed=seed + batch)
+                if batch == 4096:
+                    qs[7, 3] = float("nan")  # NaN is out of limits
+                checks.append(check_chain(f"{arm} problem 2000 B={batch}", arm_env, qs))
         n_chain_diff = sum(n for n, _ in checks)
         max_abs_err["chain_states_free"] = int(n_chain_diff > 0)
         print(f"  chain_states_free endpoint max diff from capsules_world: "
@@ -511,44 +685,37 @@ def main() -> int:
         if n_chain_diff:
             raise AssertionError(
                 f"chain_states_free and its plain version differ: {[n for n, _ in checks]}")
+        n_maze_diff = check_maze_oracle(dev)
+        if n_maze_diff:
+            raise AssertionError(f"the maze oracle differs between the card and the CPU: {n_maze_diff}")
 
-    with phase("2 eval_gnn kuka7 end to end"):
+    def main_path(config, env, model, model_s, indexes):
+        """eval_gnn on one config with the launch counts set to 0 just
+        before and read just after; the rows are reported."""
+
         for name in capsule.LAUNCHES:
             capsule.LAUNCHES[name] = 0
         rows: list = []
-        out = eval_gnn("kuka7", SEED, env, INDEXES, model=model, model_s=model_s,
+        out = eval_gnn(config, SEED, env, indexes, model=model, model_s=model_s,
                        batch=500, t_max=500, k=30, rows=rows)
-        launches = dict(capsule.LAUNCHES)
-        for name, n in launches.items():
-            print(f"  {name} launches on the main path: {n}", flush=True)
-        if launches["chain_states_free"] <= 0:
-            raise AssertionError("the main path never launched chain_states_free")
-        if launches["capsules_hit"] != 0:
-            raise AssertionError("the main path ran torch FK and capsules_hit, not the fused kernel")
-        jax_rows = {r["index"]: r for r in json.loads(JAX_ROWS.read_text())["rows"]}
-        agree = 0
-        for row, smooth_path in zip(rows, out[6]):
-            ref = jax_rows.get(row["index"])
-            same = ref is not None and all(
-                row[k] == ref[k] for k in ("success", "c_explore", "c_smooth")
-            ) and abs(row["cost"] - ref["cost"]) < 1e-3
-            agree += same
-            print(f"  port {json.dumps(row)}", flush=True)
-            print(f"  jax  {json.dumps(ref)} {'agree' if same else 'DIFFER'}", flush=True)
-            if not math.isfinite(row["cost"]):
-                raise AssertionError(f"problem {row['index']}: cost is not finite")
-            if row["success"]:
-                p = np.asarray(smooth_path)
-                env.init_new_problem(row["index"])
-                if p.ndim != 2 or p.shape[1] != env.config_dim or not np.isfinite(p).all():
-                    raise AssertionError(f"problem {row['index']}: bad path {p.shape}")
-                if not np.allclose(p[0], env.init_state, atol=1e-5):
-                    raise AssertionError(f"problem {row['index']}: path does not start at init")
-                if env.distance(p[-1], env.goal_state) >= env.RRT_EPS:
-                    raise AssertionError(f"problem {row['index']}: path does not reach the goal")
-        print(f"  rows agreeing with the JAX package: {agree} of {len(rows)}", flush=True)
+        counts = dict(capsule.LAUNCHES)
+        for name, n in counts.items():
+            print(f"  {name} launches on the {config} main path: {n}", flush=True)
+        if env.kernels().bounds is not None:  # the arms
+            if counts["chain_states_free"] <= 0:
+                raise AssertionError(f"the {config} main path never launched chain_states_free")
+            if counts["capsules_hit"] != 0:
+                raise AssertionError(
+                    f"the {config} main path ran torch FK and capsules_hit, not the fused kernel")
+        report_rows(config, env, rows, out[6])
         if out[0] == 0:
-            raise AssertionError("no problem solved")
+            raise AssertionError(f"{config}: no problem solved")
+        for name, n in counts.items():
+            launches[name] = launches.get(name, 0) + n
+
+    launches: dict = {}  # summed over the main paths of phases 2 and 4
+    with phase("2 eval_gnn kuka7 end to end"):
+        main_path("kuka7", env, model, model_s, INDEXES)
 
     with phase("3 timing"):
         env.init_new_problem(INDEXES[0])  # phase 2 left the env on another problem
@@ -560,8 +727,24 @@ def main() -> int:
         env.init_new_problem(INDEXES[0])
         lane_sweep("kuka13 problem 2000", env13)
         del env13
-        for stage, secs in stage_breakdown(env, model, model_s).items():
-            print(f"  stage {stage}: {secs / len(INDEXES):.4f} s per problem", flush=True)
+        print_stages("kuka7", stage_breakdown("kuka7", env, model, model_s, INDEXES),
+                     len(INDEXES), card)
+        device_busy_share("kuka7", env, model, model_s, INDEXES[0], card)
+
+    with phase("4 eval_gnn maze2easy, maze2hard, maze3, kuka13 end to end"):
+        for config in PHASE4_CONFIGS:
+            env, model, _, model_s, _ = str2name(config, device=dev)
+            indexes = [r["index"] for r in fixture_rows(config)][:PHASE4_PROBLEMS]
+            main_path(config, env, model, model_s, indexes)
+            if config in ("maze2easy", "maze3"):
+                print_stages(config, stage_breakdown(config, env, model, model_s, indexes),
+                             len(indexes), card)
+                print_stages(f"{config} synchronised oracle",
+                             stage_breakdown(config, env, model, model_s, indexes, oracle=True),
+                             len(indexes), card)
+                time_maze_oracle(env, card)
+            if config != "maze2hard":  # its problem 0 alone is a 6 s trace
+                device_busy_share(config, env, model, model_s, indexes[0], card)
 
     faulthandler.cancel_dump_traceback_later()
     at_4096 = timings[4096]

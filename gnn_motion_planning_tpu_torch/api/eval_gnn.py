@@ -43,9 +43,15 @@ class _Planner:
         kernels = env.kernels()
         eps = float(env.RRT_EPS)
         self.round_core = make_explore_round_core(kernels, eps)
-        # flat projection first; on overflow the full one redoes the work
-        self.project_cheap = make_projection_core_flat(kernels, eps)
+        # flat projection first where the kernels have bounds (the arms); on
+        # overflow the full one redoes the work. Envs without bounds (the
+        # mazes) have no cheap edge check, so both are the full sweep (JAX
+        # api/planner_bundle.py:94-108 with no edge_free_cheap).
         self.project_full = make_projection_core(kernels, eps)
+        if kernels.bounds is not None:
+            self.project_cheap = make_projection_core_flat(kernels, eps)
+        else:
+            self.project_cheap = self.project_full
 
 
 def get_planner(env) -> _Planner:

@@ -5,7 +5,9 @@ whose dotted names are the modules' own, so loading is a lookup: every
 parameter and buffer a module has is taken from the file by name (keys the
 module does not use are ignored, a key it needs and the file lacks raises).
 ``params_from_numpy`` takes the JAX package's nested numpy parameters, as
-its ``load_params`` returns them, into the same modules.
+its ``load_params`` returns them, into the same modules; ``load_npz`` reads
+the flat ``.npz`` files of ``assets/weights_jax/`` (scratch-trained and
+fine-tuned weights) into them.
 """
 
 from __future__ import annotations
@@ -47,11 +49,35 @@ def load_flat(module: nn.Module, flat: dict) -> nn.Module:
     return module
 
 
-def load_checkpoint(module: nn.Module, relpath: str) -> nn.Module:
-    """Load a reference-style checkpoint (e.g. data/weights/weights_kuka.pt)."""
+def read_checkpoint(relpath: str) -> dict:
+    """{dotted name: float tensor} of a reference-style checkpoint (e.g.
+    data/weights/weights_kuka.pt). The reference names the maze3 smoother
+    ``smooth_3d_attv3.pt`` but ships only ``smooth_3d_att.pt``
+    (str2name.py:25 vs data/weights/), so a missing ``_attv3.pt`` falls back
+    to the ``_att.pt`` beside it (JAX models/convert.py:76-81)."""
 
-    sd = torch.load(asset_path(relpath), map_location="cpu", weights_only=True)
-    return load_flat(module, {k: v.detach().float() for k, v in sd.items()})
+    try:
+        path = asset_path(relpath)
+    except FileNotFoundError:
+        if not relpath.endswith("_attv3.pt"):
+            raise
+        path = asset_path(relpath.replace("_attv3.pt", "_att.pt"))
+    sd = torch.load(path, map_location="cpu", weights_only=True)
+    return {k: v.detach().float() for k, v in sd.items()}
+
+
+def load_checkpoint(module: nn.Module, relpath: str) -> nn.Module:
+    """Load a reference-style checkpoint into ``module``."""
+
+    return load_flat(module, read_checkpoint(relpath))
+
+
+def load_npz(module: nn.Module, path) -> nn.Module:
+    """Load a flat ``.npz`` of dotted names (the JAX package's weight
+    files, JAX api/registry.py:181-187) into ``module``."""
+
+    with np.load(path) as f:
+        return load_flat(module, {k: f[k] for k in f.files})
 
 
 def params_from_numpy(module: nn.Module, tree: dict) -> nn.Module:

@@ -68,7 +68,8 @@ def _outer_steps(old_path, new_path, n_path, rrt_eps) -> int:
 def make_projection_core(kernels: EnvKernels, rrt_eps: float):
     """proposed_path_smootherv2 (smoother.py:194-216) at the full edge
     budget: returns ``(path, count, overflow)``, overflow always False. The
-    redo path when the flat projection overflows."""
+    redo path when the flat projection overflows, and the only core of envs
+    without kernel bounds (the mazes)."""
 
     def project(scene, old_path, new_path, n_path: int):
         L = old_path.shape[0]

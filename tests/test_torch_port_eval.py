@@ -2,7 +2,9 @@
 package's, problem by problem, and the JAX rows that ``chip_smoke.py``
 prints beside its own.
 
-Regenerate the fixture with ``python tests/test_torch_port_eval.py``.
+``jax_rows`` and ``write_jax_rows`` serve every config's fixture
+(``tests/data/torch_port_<config>_jax_rows.json``). Regenerate one with
+``python tests/test_torch_port_eval.py <config>`` (kuka7 by default).
 """
 
 import json
@@ -11,20 +13,27 @@ from pathlib import Path
 
 import pytest
 
-FIXTURE = Path(__file__).resolve().parent / "data" / "torch_port_kuka7_jax_rows.json"
 SEED = 1234
 PROTOCOL = dict(batch=500, t_max=500, k=30)
 
 
-def jax_rows(indexes):
-    """Per-problem (success, c_explore, c_smooth, cost) from the JAX package."""
+def fixture_path(config: str) -> Path:
+    return Path(__file__).resolve().parent / "data" / f"torch_port_{config}_jax_rows.json"
+
+
+FIXTURE = fixture_path("kuka7")
+
+
+def jax_rows(indexes, config: str = "kuka7"):
+    """Per-problem (success, c_explore, c_smooth, cost) from the JAX
+    package, with per-problem streams."""
 
     from gnn_motion_planning_tpu.api.eval_gnn import explore, path_cost
     from gnn_motion_planning_tpu.api.registry import str2env, str2models
     from gnn_motion_planning_tpu.config import problem_rng
 
-    env, _ = str2env("kuka7")
-    model, model_s = str2models("kuka7")
+    env, _ = str2env(config)
+    model, model_s = str2models(config)
     rows = []
     for index in indexes:
         env.rng = problem_rng(SEED, int(index))
@@ -37,13 +46,19 @@ def jax_rows(indexes):
     return rows
 
 
-def write_jax_rows(indexes=(2000, 2001, 2002, 2003, 2004)):
-    FIXTURE.parent.mkdir(exist_ok=True)
-    FIXTURE.write_text(json.dumps({
-        "about": "gnn_motion_planning_tpu.api.eval_gnn.explore on kuka7, seed 1234, "
+def write_jax_rows(config: str = "kuka7", n: int = 5):
+    """The first ``n`` test problems of ``config`` (its str2env indexes)."""
+
+    from gnn_motion_planning_tpu_torch.api.registry import str2env
+
+    indexes = [int(i) for i in str2env(config, device="cpu")[1][:n]]
+    path = fixture_path(config)
+    path.parent.mkdir(exist_ok=True)
+    path.write_text(json.dumps({
+        "about": f"gnn_motion_planning_tpu.api.eval_gnn.explore on {config}, seed 1234, "
                  "batch 500, k 30, t_max 500, JAX on the CPU; written by "
                  "tests/test_torch_port_eval.py::write_jax_rows",
-        "rows": jax_rows(indexes),
+        "rows": jax_rows(indexes, config),
     }, indent=1) + "\n")
 
 
@@ -84,4 +99,4 @@ def test_fixture_rows_are_the_jax_rows(port_rows):
 
 if __name__ == "__main__":
     sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
-    write_jax_rows()
+    write_jax_rows(*sys.argv[1:2])

@@ -32,7 +32,13 @@ Phases, each bracketed by a progress line with the elapsed seconds:
    Phase 1 also holds the maze oracle on the card against the same
    functions on the CPU: 4096 points and 4096 edges in 2-D (maze2easy
    problem 2000), 4096 sticks and 256 edges in 3-D (maze3 problem 2000);
-   decisions and counts must be equal.
+   decisions and counts must be equal. And it holds the oracles of ur5,
+   kuka14 and snake7 (problem 2000) at every batch their main paths give
+   them (B = 4096, 2 + k_max and 1): each whole oracle with the kernel
+   against the same oracle with the plain version of ``capsules_hit``, and
+   entry A against its plain version on the very inputs the oracle gave it
+   (ur5 C = 43, O = 16; kuka14 C = 48, O = 16; snake7 C = 10, O = the
+   problem's occupied cells). Decisions and counts must be equal.
 3. timing at the main path's batches, B = 4096 (flat projection), 31 (edge
    check) and 1 (goal state), kuka7 problem 2000: each entry point's
    wrapper against its plain version, and entry B against the composition
@@ -55,6 +61,14 @@ Phases, each bracketed by a progress line with the elapsed seconds:
    ops per call at the main path's batches; for every config but
    maze2hard, the device busy share of its first problem under
    torch.profiler.
+5. end to end: ``eval_gnn`` on ur5, kuka14 and snake7 at full width and at
+   each config's protocol (snake7: t_max 2000, so problem 2004 runs more
+   than one round), three problems each beside the JAX fixture rows, paths
+   checked as in phase 2; each must launch ``capsules_hit`` (entry A, the
+   box family) and not ``chain_states_free``. Then entry A's timing at B =
+   4096 on each config's shapes, and for ur5 and snake7 the stage table,
+   the synchronised-oracle pass and the oracle's ms and aten ops per call;
+   the device busy share of each config's first problem.
 
 A watchdog ends a stalled run with every thread's stack and a non-zero
 exit. Without a CUDA device, or outside a checkout of the repository, the
@@ -79,6 +93,11 @@ REPO = Path(__file__).resolve().parent
 INDEXES = [2000, 2001, 2002, 2003, 2004]
 PHASE4_CONFIGS = ("maze2easy", "maze2hard", "maze3", "kuka13")
 PHASE4_PROBLEMS = 3
+# the configs whose box family goes through entry A, and their problems
+PHASE5_PROBLEMS = {"ur5": [2000, 2001, 2002], "kuka14": [2000, 2001, 2002],
+                   "snake7": [2000, 2001, 2004]}
+# the configs whose oracle is the fused kernel (entry B)
+FUSED_CONFIGS = ("kuka7", "kuka13")
 SEED = 1234
 # H100 SXM peaks (NVIDIA data sheet): fp32 outside the tensor cores, HBM3
 PEAK_FP32_FLOPS = 67e12
@@ -126,14 +145,23 @@ def random_scene(seed: int, device):
     return tuple(torch.as_tensor(a, device=device) for a in (p0, p1, r, centers, halfs, mask))
 
 
+def protocol(config: str) -> dict:
+    """The reference protocol with the config's own overrides (snake7:
+    t_max 2000)."""
+
+    from gnn_motion_planning_tpu_torch.api.registry import scalar_overrides
+
+    return {**dict(batch=500, t_max=500, k=30), **scalar_overrides(config)}
+
+
 def chain_configs(env, batch: int, seed: int):
-    """(batch, dof) float32 configurations uniform in the joint limits, every
+    """(batch, d) float32 configurations uniform in the env's limits, every
     20th row from row 10 on pushed outside them (one check, never free)."""
 
     import numpy as np
     import torch
 
-    lo, hi = env.chain.lower.cpu().numpy(), env.chain.upper.cpu().numpy()
+    lo, hi = np.array(env.pose_range, np.float32).T
     qs = np.random.RandomState(seed).uniform(lo, hi, (batch, lo.shape[0])).astype(np.float32)
     qs[10::20] += hi - lo
     return torch.as_tensor(qs, device=env.device)
@@ -203,6 +231,44 @@ def check_chain(name: str, env, qs):
         flush=True,
     )
     return n_diff, err
+
+
+@contextlib.contextmanager
+def plain_box_family(env, record: list):
+    """Run the env's oracle with the plain version of ``capsules_hit`` in
+    place of the kernel; ``record`` receives the arguments of every call."""
+
+    from gnn_motion_planning_tpu_torch.ops import capsule
+
+    module = sys.modules[type(env).__module__]
+
+    def plain(*args):
+        record.append(args)
+        return capsule.capsules_hit_reference(*args)
+
+    module.capsules_hit = plain
+    try:
+        yield
+    finally:
+        module.capsules_hit = capsule.capsules_hit
+
+
+def check_env_oracle(config: str, env, qs):
+    """An entry-A env's oracle with the kernel against the same oracle with
+    the plain version, and entry A against its plain version on the inputs
+    the oracle gave it. Returns (differing oracle decisions and counts,
+    differing kernel decisions, entry A's inputs)."""
+
+    kern, scene = env.kernels(), env.device_scene()
+    calls: list = []
+    with plain_box_family(env, calls):
+        want_free, want_cnt = kern.batch_state_free(scene, qs)
+    free, cnt = kern.batch_state_free(scene, qs)
+    n_oracle = int((free != want_free).sum()) + int((cnt != want_cnt).sum())
+    print(f"  {config} oracle problem {env.index}: B={len(qs)} valid={int(want_cnt.sum())} "
+          f"free={int(want_free.sum())} differing={n_oracle}", flush=True)
+    n_kernel = sum(check_kernel(f"{config} problem {env.index}", args) for args in calls)
+    return n_oracle, n_kernel, calls[0]
 
 
 def time_turns(fns: dict, reps: int = 21, calls: int = 10, warmup: int = 3) -> dict:
@@ -419,6 +485,36 @@ def time_batch(env, batch: int, card: str) -> dict:
     return t
 
 
+def time_entry_a(config: str, args, card: str) -> dict:
+    """Entry A on one oracle call's inputs: wrapper and plain version (CUDA
+    events around 10 calls, median of 21, in turns), the bare kernel (200
+    launches through its C entry point) and the bound from this data."""
+
+    import torch
+
+    from gnn_motion_planning_tpu_torch.ops import capsule
+
+    B, C = args[0].shape[:2]
+    O = args[3].shape[0]
+    t = time_turns({"A": lambda: capsule.capsules_hit(*args),
+                    "A plain": lambda: capsule.capsules_hit_reference(*args)})
+    lib = capsule.load_library()
+    stream = torch.cuda.current_stream().cuda_stream
+    out = torch.empty(B, dtype=torch.bool, device=args[0].device)
+    ptr = [x.data_ptr() for x in args]
+    t["A bare"] = bare_ms(lambda: lib.capsules_hit_launch(
+        *ptr, B, C, O, out.data_ptr(), capsule.lanes_for(B), stream))
+    n_active = int(args[5].sum())
+    pairs = int(pairs_needed(capsule.capsule_contacts(*args)).sum())
+    nbytes = 4 * (2 * B * C * 3 + C) + 4 * 6 * O + O + B
+    t["A bound"], t["A bound_by"] = bound_ms(pairs * capsule.OPS_PER_PAIR, nbytes)
+    print(f"  capsules_hit {config}: B={B} C={C} O={O} active={n_active} pairs needed {pairs} "
+          f"of {B * C * n_active}: wrapper {t['A']:.4f} ms, bare {t['A bare']:.4f} ms, "
+          f"plain {t['A plain']:.4f} ms, bound {t['A bound']:.3g} ms ({t['A bound_by']}; "
+          f"{card})", flush=True)
+    return t
+
+
 def stage_breakdown(config: str, env, model, model_s, indexes, oracle: bool = False) -> dict:
     """Seconds per stage of eval_gnn over ``indexes``, from host clocks
     around each stage with a device synchronise on both sides (a second
@@ -429,7 +525,7 @@ def stage_breakdown(config: str, env, model, model_s, indexes, oracle: bool = Fa
 
     import torch
 
-    from gnn_motion_planning_tpu_torch.api import eval_gnn as protocol
+    from gnn_motion_planning_tpu_torch.api import eval_gnn as evaluation
 
     totals: dict = {}
 
@@ -451,21 +547,21 @@ def stage_breakdown(config: str, env, model, model_s, indexes, oracle: bool = Fa
             edge_free=timed("oracle edge_free", kern.edge_free),
             batch_state_free=timed("oracle state_free", kern.batch_state_free))
         env._torch_planner = None
-    planner = protocol.get_planner(env)
-    saved = (protocol.build_rgg_edges, protocol.explorer_forward, protocol.smoother_forward,
+    planner = evaluation.get_planner(env)
+    saved = (evaluation.build_rgg_edges, evaluation.explorer_forward, evaluation.smoother_forward,
              planner.round_core, planner.project_cheap)
-    protocol.build_rgg_edges = timed("rgg build", protocol.build_rgg_edges)
-    protocol.explorer_forward = timed("explorer forward", protocol.explorer_forward)
-    protocol.smoother_forward = timed("smoother forward", protocol.smoother_forward)
+    evaluation.build_rgg_edges = timed("rgg build", evaluation.build_rgg_edges)
+    evaluation.explorer_forward = timed("explorer forward", evaluation.explorer_forward)
+    evaluation.smoother_forward = timed("smoother forward", evaluation.smoother_forward)
     planner.round_core = timed("greedy search", planner.round_core)
     planner.project_cheap = timed("projection", planner.project_cheap)
     env.sample_n_points = timed("host sampling", env.sample_n_points)
     t0 = time.perf_counter()
     try:
-        protocol.eval_gnn(config, SEED, env, indexes, model=model, model_s=model_s,
-                        batch=500, t_max=500, k=30)
+        evaluation.eval_gnn(config, SEED, env, indexes, model=model, model_s=model_s,
+                            **protocol(config))
     finally:
-        (protocol.build_rgg_edges, protocol.explorer_forward, protocol.smoother_forward,
+        (evaluation.build_rgg_edges, evaluation.explorer_forward, evaluation.smoother_forward,
          planner.round_core, planner.project_cheap) = saved
         del env.sample_n_points
         env._kernels, env._torch_planner = saved_kernels, saved_planner
@@ -585,8 +681,7 @@ def device_busy_share(config: str, env, model, model_s, index: int, card: str) -
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        eval_gnn(config, SEED, env, [index], model=model, model_s=model_s,
-                 batch=500, t_max=500, k=30)
+        eval_gnn(config, SEED, env, [index], model=model, model_s=model_s, **protocol(config))
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     device = [e for e in prof.events() if str(e.device_type).endswith("CUDA")]
@@ -600,22 +695,30 @@ def device_busy_share(config: str, env, model, model_s, index: int, card: str) -
           f"(profiled; {card})", flush=True)
 
 
-def time_maze_oracle(env, card: str) -> None:
-    """ms per call of the env's edge check at the main path's batches (a
-    search pop: E = 1; a projection step of a 64-slot path: E = 192), CUDA
-    events around 10 calls, median of 21, and aten ops queued per call."""
+def time_oracle(env, card: str) -> None:
+    """ms per call of the env's oracle at the main path's batches, CUDA
+    events around 10 calls, median of 21, and aten ops queued per call.
+    Mazes: the edge check at E = 1 (a search pop) and 192 (a projection step
+    of a 64-slot path). Arms: the edge check at E = 1 (2 + k_max states) and
+    the state oracle at B = 4096 (the flat projection)."""
 
     import torch
 
     kern = env.kernels()
     scene = env.device_scene()
-    _, qa, qb = maze_inputs(env.config_dim, 11, 1, 192)
-    qa, qb = torch.as_tensor(qa, device=env.device), torch.as_tensor(qb, device=env.device)
-    fns = {E: (lambda E=E: kern.edge_free(scene, qa[:E], qb[:E])) for E in (1, 192)}
-    t = time_turns({f"E={E}": fn for E, fn in fns.items()})
-    ops = {E: count_ops(fn) for E, fn in fns.items()}
-    print(f"  oracle {env} edge_free: " + "; ".join(
-        f"E={E} {t[f'E={E}']:.4f} ms, {ops[E]} aten ops" for E in fns) + f" ({card})", flush=True)
+    if kern.bounds is None:
+        _, qa, qb = maze_inputs(env.config_dim, 11, 1, 192)
+        qa, qb = torch.as_tensor(qa, device=env.device), torch.as_tensor(qb, device=env.device)
+        fns = {f"edge_free E={E}": (lambda E=E: kern.edge_free(scene, qa[:E], qb[:E]))
+               for E in (1, 192)}
+    else:
+        qs = chain_configs(env, 4096, seed=11)
+        fns = {"edge_free E=1": lambda: kern.edge_free(scene, qs[:1], qs[1:2]),
+               "state_free B=4096": lambda: kern.batch_state_free(scene, qs)}
+    t = time_turns(fns)
+    ops = {name: count_ops(fn) for name, fn in fns.items()}
+    print(f"  oracle {env}: " + "; ".join(
+        f"{name} {t[name]:.4f} ms, {ops[name]} aten ops" for name in fns) + f" ({card})", flush=True)
 
 
 def main() -> int:
@@ -689,6 +792,25 @@ def main() -> int:
         if n_maze_diff:
             raise AssertionError(f"the maze oracle differs between the card and the CPU: {n_maze_diff}")
 
+        # the entry-A envs at every batch their main paths give the oracle:
+        # the flat projection, one search pop's edge and the goal test
+        arm_envs, entry_a_inputs, n_env_diff, n_a_diff = {}, {}, [], []
+        for config in PHASE5_PROBLEMS:
+            arm_env, arm_model, _, arm_model_s, _ = str2name(config, device=dev)
+            arm_env.init_new_problem(2000)
+            arm_envs[config] = (arm_env, arm_model, arm_model_s)
+            for batch in (4096, 2 + arm_env._k_max(), 1):
+                qs = chain_configs(arm_env, batch, seed=len(config) + batch)
+                n_oracle, n_kernel, args = check_env_oracle(config, arm_env, qs)
+                n_env_diff.append(n_oracle)
+                n_a_diff.append(n_kernel)
+                entry_a_inputs.setdefault(config, args)
+        max_abs_err["capsules_hit"] = int(max(diffs + n_a_diff) > 0)
+        if sum(n_env_diff) or sum(n_a_diff):
+            raise AssertionError(
+                f"ur5, kuka14, snake7 with the kernel and the plain version differ: oracle "
+                f"{n_env_diff}, capsules_hit {n_a_diff}")
+
     def main_path(config, env, model, model_s, indexes):
         """eval_gnn on one config with the launch counts set to 0 just
         before and read just after; the rows are reported."""
@@ -696,17 +818,22 @@ def main() -> int:
         for name in capsule.LAUNCHES:
             capsule.LAUNCHES[name] = 0
         rows: list = []
-        out = eval_gnn(config, SEED, env, indexes, model=model, model_s=model_s,
-                       batch=500, t_max=500, k=30, rows=rows)
+        out = eval_gnn(config, SEED, env, indexes, model=model, model_s=model_s, rows=rows,
+                       **protocol(config))
         counts = dict(capsule.LAUNCHES)
         for name, n in counts.items():
             print(f"  {name} launches on the {config} main path: {n}", flush=True)
-        if env.kernels().bounds is not None:  # the arms
+        if config in FUSED_CONFIGS:
             if counts["chain_states_free"] <= 0:
                 raise AssertionError(f"the {config} main path never launched chain_states_free")
             if counts["capsules_hit"] != 0:
                 raise AssertionError(
                     f"the {config} main path ran torch FK and capsules_hit, not the fused kernel")
+        if config in PHASE5_PROBLEMS:
+            if counts["capsules_hit"] <= 0:
+                raise AssertionError(f"the {config} main path never launched capsules_hit")
+            if counts["chain_states_free"] != 0:
+                raise AssertionError(f"the {config} main path launched chain_states_free")
         report_rows(config, env, rows, out[6])
         if out[0] == 0:
             raise AssertionError(f"{config}: no problem solved")
@@ -742,9 +869,23 @@ def main() -> int:
                 print_stages(f"{config} synchronised oracle",
                              stage_breakdown(config, env, model, model_s, indexes, oracle=True),
                              len(indexes), card)
-                time_maze_oracle(env, card)
+                time_oracle(env, card)
             if config != "maze2hard":  # its problem 0 alone is a 6 s trace
                 device_busy_share(config, env, model, model_s, indexes[0], card)
+
+    with phase("5 eval_gnn ur5, kuka14, snake7 end to end"):
+        for config, indexes in PHASE5_PROBLEMS.items():
+            env, model, model_s = arm_envs[config]
+            main_path(config, env, model, model_s, indexes)
+            time_entry_a(config, entry_a_inputs[config], card)
+            if config in ("ur5", "snake7"):
+                print_stages(config, stage_breakdown(config, env, model, model_s, indexes),
+                             len(indexes), card)
+                print_stages(f"{config} synchronised oracle",
+                             stage_breakdown(config, env, model, model_s, indexes, oracle=True),
+                             len(indexes), card)
+                time_oracle(env, card)
+            device_busy_share(config, env, model, model_s, indexes[0], card)
 
     faulthandler.cancel_dump_traceback_later()
     at_4096 = timings[4096]

@@ -229,11 +229,11 @@ def eval_gnn(str_, seed, env, indexes, model=None, model_s=None, smooth: bool = 
     per problem: index, success, c_explore, c_smooth, cost, and wall seconds
     in all, in exploration (sampling included) and in the planning rounds."""
 
-    from gnn_motion_planning_tpu_torch.api.registry import str2models
+    from gnn_motion_planning_tpu_torch.api.registry import smoother_scale, str2models
 
     set_random_seed(seed)
     if model is None or model_s is None:
-        m, m_s = str2models(str_, env.device)
+        m, m_s = str2models(str_, env.device, smoother_scale(str_, env))
         model = m if model is None else model
         model_s = m_s if model_s is None else model_s
 

@@ -10,6 +10,7 @@ from __future__ import annotations
 
 from typing import Any, Callable, NamedTuple
 
+import numpy as np
 import torch
 
 BIG = 1 << 30
@@ -82,3 +83,47 @@ def make_fixed_step_edge_free(
         return free & ~overflow, count, overflow
 
     return edge_free
+
+
+def rejection_sample(env, n: int, need_negative: bool, batch_free, adaptive: bool):
+    """``n`` free configurations drawn uniformly in ``env.pose_range`` from
+    ``env.rng``, and the rejected draws (JAX envs/kuka.py:388-451,
+    envs/snake.py:542-587). Draws go in chunks through ``batch_free``
+    ((n, d) float64 -> (n,) bool); the state is restored and the consumed
+    prefix re-drawn past the n-th acceptance, so the stream, and the count
+    of every draw taken, equal a one-at-a-time loop's. ``adaptive`` sizes a
+    chunk by the env's accept rate (a device oracle, one call for most
+    requests); otherwise a chunk is twice what is still needed (the native
+    core, which pays per draw)."""
+
+    rng = env.rng
+    if rng is None:
+        raise ValueError("set env.rng (config.problem_rng) before sampling")
+    pr = np.array(env.pose_range)
+    samples: list = []
+    negative: list = []
+    need = n
+    rate = getattr(env, "_accept_rate", None)
+    while need > 0:
+        if adaptive and rate is not None:
+            chunk = min(max(int(need / max(rate, 0.02) * 1.4), 512), 16384)
+        else:
+            chunk = max(2 * need, 512)
+        state = rng.get_state()
+        draws = rng.uniform(pr[:, 0], pr[:, 1], (chunk, env.config_dim))
+        ok = batch_free(draws)
+        n_acc = int(ok.sum())
+        rate = n_acc / chunk if rate is None else 0.8 * rate + 0.2 * n_acc / chunk
+        env._accept_rate = rate
+        if n_acc >= need:
+            stop = int(np.nonzero(np.cumsum(ok) == need)[0][0]) + 1
+            rng.set_state(state)
+            rng.uniform(pr[:, 0], pr[:, 1], (stop, env.config_dim))
+            draws, ok = draws[:stop], ok[:stop]
+            need = 0
+        else:
+            need -= n_acc
+        env.collision_check_count += len(draws)
+        samples.extend(draws[ok])
+        negative.extend(draws[~ok])
+    return (samples, negative) if need_negative else samples

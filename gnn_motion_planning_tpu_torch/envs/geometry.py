@@ -1,12 +1,14 @@
-"""Segment-vs-AABB squared distance (port of envs/geometry.py).
+"""Segment-vs-AABB and segment-vs-segment squared distances (port of
+gnn_motion_planning_tpu/envs/geometry.py).
 
-The same candidate set, guards and order of operations as
-gnn_motion_planning_tpu/envs/geometry.py::seg_box_sq_dist, broadcasting
-over leading batch dimensions.
+The same candidate sets, guards and order of operations as the JAX
+functions, broadcasting over leading batch dimensions; and the contact test
+over a list of capsule pairs that the arm oracles build on them.
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from gnn_motion_planning_tpu_torch.envs.kinematics import sum_last
@@ -60,3 +62,51 @@ def seg_box_sq_dist(p0, p1, center, half):
 
     f_all = torch.cat([f(cands), f(torch.stack([t_lo, t_hi, t_star], dim=-1))], dim=-1)
     return f_all.amin(dim=-1)
+
+
+def seg_seg_sq_dist(p0, p1, q0, q1, eps: float = EPS):
+    """Min squared distance between segments [p0, p1] and [q0, q1] (closed
+    form, Ericson, Real-Time Collision Detection 5.1.9), broadcastable: the
+    JAX function's guards, and its order: s from the unclamped solve gives
+    t, t is clamped, then s is always solved again from the clamped t."""
+
+    d1 = p1 - p0
+    d2 = q1 - q0
+    r = p0 - q0
+    a = sum_last(d1 * d1)
+    e = sum_last(d2 * d2)
+    f = sum_last(d2 * r)
+    c = sum_last(d1 * r)
+    b = sum_last(d1 * d2)
+    denom = a * e - b * b
+
+    ok = denom > eps
+    s = torch.where(ok, ((b * f - c * e) / torch.where(ok, denom, 1.0)).clamp(0.0, 1.0), 0.0)
+    ok = e > eps
+    t = torch.where(ok, (b * s + f) / torch.where(ok, e, 1.0), 0.0)
+    t = t.clamp(0.0, 1.0)
+    ok = a > eps
+    s = torch.where(ok, ((b * t - c) / torch.where(ok, a, 1.0)).clamp(0.0, 1.0), 0.0)
+
+    diff = (p0 + s[..., None] * d1) - (q0 + t[..., None] * d2)
+    return sum_last(diff * diff)
+
+
+def pair_contacts(p0, p1, i, j, r2):
+    """(B,) bool: does any listed capsule pair (i[k], j[k]) of a
+    configuration come closer than sqrt(r2[k])? p0, p1: (B, C, 3) capsule
+    endpoints; i, j: (P,) capsule indexes; r2: (P,) squared contact
+    distances. The pairs a JAX oracle masks out are simply not listed."""
+
+    d2 = seg_seg_sq_dist(p0[:, i], p1[:, i], p0[:, j], p1[:, j])
+    return (d2 < r2).any(dim=1)
+
+
+def contact_pairs(pair_mask: np.ndarray, r: np.ndarray, device):
+    """The pairs of a mask as index lists, row-major, and the squared sums
+    of their radii, formed in float32 as ``(r_i + r_j) ** 2``."""
+
+    i, j = np.nonzero(pair_mask)
+    r = np.asarray(r, np.float32)
+    s = r[i] + r[j]
+    return tuple(torch.as_tensor(a, device=device) for a in (i, j, s * s))

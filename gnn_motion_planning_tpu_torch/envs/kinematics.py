@@ -91,6 +91,36 @@ def sum_last(x: torch.Tensor) -> torch.Tensor:
     return acc
 
 
+def norm_last(x: torch.Tensor) -> torch.Tensor:
+    """Euclidean norm over the last axis, ``sqrt(sum(x ** 2))``, rounded as
+    XLA's CPU code rounds it, so that lengths, and the step counts
+    ``int(d / eps)`` taken from them, are the JAX package's.
+
+    XLA sums the squares in index order, each step a fused multiply-add,
+    except where it vectorises: rows of 5 to 8 entries it takes four at a
+    time in vector registers, each step a multiply and an add, and only the
+    rows left over past a multiple of four get fused multiply-adds (rows
+    are the leading axes, flattened). Fused steps are formed here in
+    float64 and rounded once (the square of a float32 is exact there); the
+    sqrt too, since torch's float32 sqrt on the CPU is not correctly
+    rounded. The CPU and the card give the same bits.
+    """
+
+    d = x.shape[-1]
+    x64 = x.double()
+    acc = (x64[..., 0] * x64[..., 0]).float()
+    for i in range(1, d):
+        acc = (acc.double() + x64[..., i] * x64[..., i]).float()
+    if 5 <= d <= 8 and x.dim() >= 2:
+        plain = x[..., 0] * x[..., 0]
+        for i in range(1, d):
+            plain = plain + x[..., i] * x[..., i]
+        rows = plain.numel()
+        vector = torch.arange(rows, device=x.device) < rows // 4 * 4
+        acc = torch.where(vector.reshape(plain.shape), plain, acc)
+    return torch.sqrt(acc.double()).float()
+
+
 def matmul3(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """(..., 3, 3) @ (..., 3, 3) with in-order sums."""
 
@@ -117,14 +147,19 @@ def _axis_angle(axis: torch.Tensor, angle: torch.Tensor) -> torch.Tensor:
     return torch.stack([torch.stack(r, dim=-1) for r in rows], dim=-2)
 
 
-def fk_link_frames(chain: ChainParams, q: torch.Tensor):
+def fk_link_frames(chain: ChainParams, q: torch.Tensor, base_rot=None, base_trans=None):
     """World (R, t) of every link frame for configurations q (B, dof):
-    (B, J+1, 3, 3) and (B, J+1, 3)."""
+    (B, J+1, 3, 3) and (B, J+1, 3). The root frame is ``base_rot`` (3, 3)
+    or (B, 3, 3) and ``base_trans`` (3,) or (B, 3); identity and the
+    origin when None."""
 
     B = q.shape[0]
-    eye = torch.eye(3, dtype=torch.float32, device=q.device)
-    Rs = [eye.expand(B, 3, 3)]
-    ts = [torch.zeros(B, 3, dtype=torch.float32, device=q.device)]
+    if base_rot is None:
+        base_rot = torch.eye(3, dtype=torch.float32, device=q.device)
+    if base_trans is None:
+        base_trans = torch.zeros(3, dtype=torch.float32, device=q.device)
+    Rs = [base_rot.expand(B, 3, 3)]
+    ts = [base_trans.expand(B, 3)]
     zero = torch.zeros(B, dtype=torch.float32, device=q.device)
     for j, (pf, qi) in enumerate(zip(chain.parent_frame, chain.q_index)):
         R, t = Rs[pf], ts[pf]
@@ -135,11 +170,12 @@ def fk_link_frames(chain: ChainParams, q: torch.Tensor):
     return torch.stack(Rs, dim=1), torch.stack(ts, dim=1)
 
 
-def capsules_world(chain: ChainParams, q: torch.Tensor):
+def capsules_world(chain: ChainParams, q: torch.Tensor, base_rot=None, base_trans=None):
     """Capsule endpoints in the world frame for q (B, dof): (B, C, 3) twice,
-    and the radii (C,)."""
+    and the radii (C,). ``base_rot`` and ``base_trans`` place the root
+    frame, as in :func:`fk_link_frames`."""
 
-    Rs, ts = fk_link_frames(chain, q)
+    Rs, ts = fk_link_frames(chain, q, base_rot, base_trans)
     R = Rs[:, chain.cap_link]  # (B, C, 3, 3)
     t = ts[:, chain.cap_link]  # (B, C, 3)
     p0 = matvec3(R, chain.cap_p0.expand_as(t)) + t

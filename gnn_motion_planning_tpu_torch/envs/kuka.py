@@ -1,6 +1,7 @@
-"""KUKA iiwa 7-DoF environment: batched FK plus the capsule kernel.
+"""KUKA iiwa environments (kuka7, kuka13): batched FK plus the capsule
+kernel.
 
-Port of gnn_motion_planning_tpu/envs/kuka.py for kuka7. Problems are the
+Port of gnn_motion_planning_tpu/envs/kuka.py. Problems are the
 pickled (obstacles(halfExtents, basePosition), start, goal, demo_path)
 lists; the robot is a capsule decomposition of the URDF meshes with the
 calibrated radii. The device oracle is ``ops/capsule.py::chain_states_free``
@@ -8,7 +9,10 @@ calibrated radii. The device oracle is ``ops/capsule.py::chain_states_free``
 card, its plain PyTorch version on the CPU. Host sampling goes through the
 port's own build of the float64 native core (utils/geomcore.py), as the JAX
 package's does, so the accepted-sample stream is the same. A missing native
-core is an error, never a silent switch to another oracle.
+core is an error, never a silent switch to another oracle. ``KukaEnv`` is
+also the host wrapper of the other fixed-step envs (envs/ur5.py,
+envs/kuka2.py, envs/snake.py), which bring their own robot, problems,
+kernels and sampling oracle.
 """
 
 from __future__ import annotations
@@ -22,8 +26,13 @@ import numpy as np
 import torch
 
 from gnn_motion_planning_tpu_torch import resolve_device
-from gnn_motion_planning_tpu_torch.envs.base import EnvKernels, K_CHEAP, make_fixed_step_edge_free
-from gnn_motion_planning_tpu_torch.envs.kinematics import ChainParams, chain_from_model, sum_last
+from gnn_motion_planning_tpu_torch.envs.base import (
+    EnvKernels,
+    K_CHEAP,
+    make_fixed_step_edge_free,
+    rejection_sample,
+)
+from gnn_motion_planning_tpu_torch.envs.kinematics import ChainParams, chain_from_model, norm_last
 from gnn_motion_planning_tpu_torch.envs.urdf import parse_urdf
 from gnn_motion_planning_tpu_torch.ops.capsule import chain_states_free, pack_chain
 from gnn_motion_planning_tpu_torch.utils.assets import asset_path
@@ -70,22 +79,20 @@ def make_box_scene(obstacles, device) -> BoxScene:
     return BoxScene(*(torch.as_tensor(a, device=device) for a in (centers, halfs, mask)))
 
 
-def make_chain_kernels(chain: ChainParams, rrt_eps: float, k_max: int) -> EnvKernels:
-    """EnvKernels for a serial-chain robot among AABB obstacles."""
+def _clamp(x, lower, upper):
+    return torch.minimum(torch.maximum(x, lower), upper)
 
-    lower, upper = chain.lower, chain.upper
-    packed = pack_chain(chain)
 
-    def batch_state_free(scene: BoxScene, qs: torch.Tensor):
-        return chain_states_free(qs.contiguous(), packed, scene)
+def arm_kernels(batch_state_free, lower, upper, rrt_eps: float, k_max: int) -> EnvKernels:
+    """EnvKernels of a fixed-step arm env from its batched state oracle:
+    the clamped Euclidean metric and steering rule, the edge check at the
+    space diagonal's budget and, where that is large, at K_CHEAP."""
 
     def distance(a, b):
-        b = torch.minimum(torch.maximum(b, lower), upper)
-        return torch.sqrt(sum_last((b - a) ** 2))
+        return norm_last(_clamp(b, lower, upper) - a)
 
     def interpolate(a, b, ratio):
-        new = a + (b - a) * ratio[..., None]
-        return torch.minimum(torch.maximum(new, lower), upper)
+        return _clamp(a + (b - a) * ratio[..., None], lower, upper)
 
     edge_free = make_fixed_step_edge_free(
         batch_state_free, distance, lower, upper, rrt_eps, k_max
@@ -106,6 +113,17 @@ def make_chain_kernels(chain: ChainParams, rrt_eps: float, k_max: int) -> EnvKer
     )
 
 
+def make_chain_kernels(chain: ChainParams, rrt_eps: float, k_max: int) -> EnvKernels:
+    """EnvKernels for a serial-chain robot among AABB obstacles."""
+
+    packed = pack_chain(chain)
+
+    def batch_state_free(scene: BoxScene, qs: torch.Tensor):
+        return chain_states_free(qs.contiguous(), packed, scene)
+
+    return arm_kernels(batch_state_free, chain.lower, chain.upper, rrt_eps, k_max)
+
+
 class KukaEnv:
     """Host wrapper with the reference env protocol (kuka_env.py:10-411)."""
 
@@ -117,20 +135,31 @@ class KukaEnv:
         map_file: str = "maze_files/kukas_7_3000.pkl",
         device=None,
     ):
+        self._start(device)
+        self._load_problems(map_file)
+        model = parse_urdf(asset_path(kuka_file))
+        self.chain = _apply_calibration(chain_from_model(model, self.device), kuka_file)
+        self._set_pose_range(model.pose_range())
+        self._native = GeomChain(self.chain.numpy_arrays(), self.RRT_EPS)
+
+    def _start(self, device):
+        """The host state every env of this family starts with."""
+
         self.device = resolve_device(device)
         self.collision_check_count = 0
         self.rng = None
+        self.episode_i = 0
+        self._native = None  # host sampling oracle; None: the device oracle
+        self._kernels = None
 
-        model = parse_urdf(asset_path(kuka_file))
-        self.chain = _apply_calibration(chain_from_model(model, self.device), kuka_file)
-        self.config_dim = model.config_dim
-        self.pose_range = [(float(lo), float(hi)) for lo, hi in model.pose_range()]
-
+    def _load_problems(self, map_file: str):
         with open(asset_path(map_file), "rb") as f:
             self.problems = pickle.load(f)
-        self.episode_i = 0
-        self._native = GeomChain(self.chain.numpy_arrays(), self.RRT_EPS)
-        self._kernels = None
+
+    def _set_pose_range(self, pose_range):
+        self.pose_range = [(float(lo), float(hi)) for lo, hi in pose_range]
+        self.config_dim = len(self.pose_range)
+        self.bound = np.array(self.pose_range).T.reshape(-1)
 
     def __str__(self):
         return "kuka" + str(self.config_dim)
@@ -147,12 +176,13 @@ class KukaEnv:
         self.goal_state = np.asarray(goal)
         self.path = path
         self._scene = make_box_scene(obstacles, self.device)
-        if obstacles:
-            centers = np.stack([_coerce_vec3(b) for _, b in obstacles])
-            halfs = np.stack([_coerce_vec3(h) for h, _ in obstacles])
-        else:
-            centers = halfs = np.zeros((0, 3))
-        self._native.set_scene(centers, halfs)
+        if self._native is not None:
+            if obstacles:
+                centers = np.stack([_coerce_vec3(b) for _, b in obstacles])
+                halfs = np.stack([_coerce_vec3(h) for h, _ in obstacles])
+            else:
+                centers = halfs = np.zeros((0, 3))
+            self._native.set_scene(centers, halfs)
 
     def device_scene(self) -> BoxScene:
         return self._scene
@@ -179,35 +209,19 @@ class KukaEnv:
     # -- sampling ------------------------------------------------------------
 
     def sample_n_points(self, n: int, need_negative: bool = False):
-        """Chunked rejection sampling through the native core, with the
-        consumed prefix replayed so the stream matches a one-at-a-time loop
-        (kuka.py:388-451; the native core keeps the minimal 2x chunk)."""
+        """Chunked rejection sampling (kuka.py:388-451): through the native
+        core where the env has one, else through the device oracle with
+        chunks sized by the accept rate."""
 
-        rng = self.rng
-        if rng is None:
-            raise ValueError("set env.rng (config.problem_rng) before sampling")
-        pr = np.array(self.pose_range)
-        samples: list = []
-        negative: list = []
-        need = n
-        while need > 0:
-            chunk = max(2 * need, 512)
-            state = rng.get_state()
-            draws = rng.uniform(pr[:, 0], pr[:, 1], (chunk, self.config_dim))
-            ok, _ = self._native.states_free(draws)
-            n_acc = int(ok.sum())
-            if n_acc >= need:
-                stop = int(np.nonzero(np.cumsum(ok) == need)[0][0]) + 1
-                rng.set_state(state)
-                rng.uniform(pr[:, 0], pr[:, 1], (stop, self.config_dim))
-                draws, ok = draws[:stop], ok[:stop]
-                need = 0
-            else:
-                need -= n_acc
-            self.collision_check_count += len(draws)
-            samples.extend(draws[ok])
-            negative.extend(draws[~ok])
-        return (samples, negative) if need_negative else samples
+        return rejection_sample(self, n, need_negative, self._batch_free,
+                                adaptive=self._native is None)
+
+    def _batch_free(self, draws: np.ndarray) -> np.ndarray:
+        if self._native is not None:
+            return self._native.states_free(draws)[0]
+        qs = torch.as_tensor(np.asarray(draws, np.float32), device=self.device)
+        free, _ = self.kernels().batch_state_free(self._scene, qs)
+        return free.cpu().numpy()
 
     # -- metric (host) -------------------------------------------------------
 

@@ -2,9 +2,10 @@
 
 The port's own copy of gnn_motion_planning_tpu/envs/urdf.py (pure numpy):
 each URDF is parsed once on the host into a serial-chain parameterisation
-for the batched FK (envs/kinematics.py) and one conservative capsule per
-mesh cluster (principal-axis segment + max perpendicular radius). The same
-arithmetic as the JAX package, so both build bit-identical chains.
+for the batched FK (envs/kinematics.py) and conservative capsules: one per
+mesh cluster (principal-axis segment + max perpendicular radius), one per
+cylinder, capsule, box or sphere. The same arithmetic as the JAX package,
+so both build bit-identical chains.
 """
 
 from __future__ import annotations
@@ -165,8 +166,9 @@ def _parse_origin(elem) -> Tuple[np.ndarray, np.ndarray]:
 
 
 def _geometry_capsule(link_name, col, base_dir, n_caps: int = 3) -> Optional[List[LinkCapsule]]:
-    """Capsules fitted to one collision mesh (the kuka7 URDF has STL meshes
-    only; other geometry is not ported yet and raises)."""
+    """Capsules of one collision element: fitted to an STL mesh (n_caps
+    clusters), or one capsule for a cylinder, capsule, box or sphere
+    (JAX envs/urdf.py:177-231). Other meshes are not ported and raise."""
 
     geom = col.find("geometry")
     if geom is None:
@@ -174,16 +176,42 @@ def _geometry_capsule(link_name, col, base_dir, n_caps: int = 3) -> Optional[Lis
     xyz, rpy = _parse_origin(col)
     rot = rpy_to_matrix(rpy)
     mesh = geom.find("mesh")
-    if mesh is None or Path(mesh.get("filename")).suffix.lower() != ".stl":
-        raise NotImplementedError(f"{link_name}: only STL collision meshes are ported")
-    scale = np.ones(3)
-    if mesh.get("scale"):
-        scale = np.array([float(x) for x in mesh.get("scale").split()])
-    verts = load_stl_vertices(str(base_dir / mesh.get("filename"))) * scale
-    return [
-        LinkCapsule(link=link_name, p0=rot @ p0 + xyz, p1=rot @ p1 + xyz, radius=r)
-        for p0, p1, r in fit_capsules(verts, n_caps)
-    ]
+    if mesh is not None:
+        if Path(mesh.get("filename")).suffix.lower() != ".stl":
+            raise NotImplementedError(f"{link_name}: only STL collision meshes are ported")
+        scale = np.ones(3)
+        if mesh.get("scale"):
+            scale = np.array([float(x) for x in mesh.get("scale").split()])
+        verts = load_stl_vertices(str(base_dir / mesh.get("filename"))) * scale
+        return [
+            LinkCapsule(link=link_name, p0=rot @ p0 + xyz, p1=rot @ p1 + xyz, radius=r)
+            for p0, p1, r in fit_capsules(verts, n_caps)
+        ]
+    cyl = geom.find("cylinder")
+    if cyl is None:
+        cyl = geom.find("capsule")
+    box = geom.find("box")
+    sph = geom.find("sphere")
+    if cyl is not None:
+        L = float(cyl.get("length"))
+        r = float(cyl.get("radius"))
+        p0 = np.array([0, 0, -L / 2.0])
+        p1 = np.array([0, 0, L / 2.0])
+    elif box is not None:
+        # the major axis becomes the segment, the other two the radius
+        size = np.array([float(x) for x in box.get("size").split()])
+        major = int(np.argmax(size))
+        half = size[major] / 2.0
+        r = float(np.linalg.norm(np.delete(size, major)) / 2.0)
+        p0 = np.zeros(3)
+        p1 = np.zeros(3)
+        p0[major], p1[major] = -max(half - r, 0.0), max(half - r, 0.0)
+    elif sph is not None:
+        r = float(sph.get("radius"))
+        p0 = p1 = np.zeros(3)
+    else:
+        return None
+    return [LinkCapsule(link=link_name, p0=rot @ p0 + xyz, p1=rot @ p1 + xyz, radius=r)]
 
 
 def parse_urdf(path: str, n_caps: int = 3) -> RobotModel:

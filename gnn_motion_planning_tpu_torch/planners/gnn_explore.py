@@ -21,7 +21,7 @@ from typing import NamedTuple
 import torch
 
 from gnn_motion_planning_tpu_torch.envs.base import EnvKernels
-from gnn_motion_planning_tpu_torch.envs.kinematics import sum_last
+from gnn_motion_planning_tpu_torch.envs.kinematics import norm_last
 
 CHUNK = 32
 
@@ -109,7 +109,7 @@ def make_explore_round_core(kernels: EnvKernels, rrt_eps: float, chunk: int = CH
             )
 
             _or_at(explored, b, free)
-            step = torch.sqrt(sum_last((va - vb) * (va - vb)))
+            step = norm_last(va - vb)
             new_cost = costs.index_select(0, a) + step
             costs.index_put_((b,), torch.where(free, new_cost, costs.index_select(0, b)))
             prev.index_put_((b,), torch.where(free, a, prev.index_select(0, b)))

@@ -15,13 +15,9 @@ import numpy as np
 import torch
 
 from gnn_motion_planning_tpu_torch.envs.base import BIG, EnvKernels
-from gnn_motion_planning_tpu_torch.envs.kinematics import sum_last
+from gnn_motion_planning_tpu_torch.envs.kinematics import norm_last
 
 _CONVERGED = np.float32(1e-5)
-
-
-def _norm(x):
-    return torch.sqrt(sum_last(x * x))
 
 
 def _resolve(okA, cA, okB, cB, ok2, c2, interior, dnorm, count):
@@ -48,7 +44,7 @@ def _resolve(okA, cA, okB, cB, ok2, c2, interior, dnorm, count):
 def _candidates(kernels, path, new_path, rrt_eps, n_path):
     L = path.shape[0]
     dev = path.device
-    dist = _norm(path - new_path)
+    dist = norm_last(path - new_path)
     steer = kernels.interpolate(path, new_path, rrt_eps / torch.clamp_min(dist, 1e-30))
     cand = torch.where((dist < rrt_eps)[:, None], new_path, steer)
     i = torch.arange(L, device=dev)
@@ -61,7 +57,7 @@ def _candidates(kernels, path, new_path, rrt_eps, n_path):
 
 def _outer_steps(old_path, new_path, n_path, rrt_eps) -> int:
     live = torch.arange(old_path.shape[0], device=old_path.device) < n_path
-    disp = _norm(old_path - new_path)
+    disp = norm_last(old_path - new_path)
     return int(torch.ceil(torch.where(live, disp, 0.0).amax() / rrt_eps).to(torch.int32))
 
 
@@ -81,7 +77,7 @@ def make_projection_core(kernels: EnvKernels, rrt_eps: float):
             )
             ok, cnt = kernels.edge_free(scene, torch.cat([prev_old, prev_cand, nxt]), cand.repeat(3, 1))
             ok, cnt = ok.cpu().numpy(), cnt.cpu().numpy()
-            dnorm = _norm(cand - new_path).cpu().numpy()
+            dnorm = norm_last(cand - new_path).cpu().numpy()
             accepted, count, diff = _resolve(
                 ok[:L], cnt[:L], ok[L : 2 * L], cnt[L : 2 * L], ok[2 * L :], cnt[2 * L :],
                 interior.cpu().numpy(), dnorm, count,
@@ -157,7 +153,7 @@ def make_projection_core_flat(kernels: EnvKernels, rrt_eps: float, slots: int = 
             cnt_e = torch.where(
                 valid_e, 1 + torch.where(fa, 1 + torch.where(fb, int_cnt, zero), zero), zero
             )
-            dnorm = _norm(cand - new_path)
+            dnorm = norm_last(cand - new_path)
 
             host = torch.cat([
                 ok_e.to(torch.float64), cnt_e.to(torch.float64), dnorm.to(torch.float64),

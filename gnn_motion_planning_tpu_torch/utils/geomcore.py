@@ -1,6 +1,7 @@
 """ctypes binding to the native float64 geometry core (runtime/geomcore.cpp).
 
-Port of gnn_motion_planning_tpu/utils/geomcore.py, single chain only. At
+Port of gnn_motion_planning_tpu/utils/geomcore.py: one serial chain
+(``GeomChain``) and the dual-arm rig of kuka14 (``GeomDual``). At
 first use it builds ``runtime/geomcore.cpp`` with the JAX binding's flags
 (``g++ -O3 -march=native -shared -fPIC``, so that on one machine both give
 the same sample stream) into ``build/torch_port/``. It never loads the
@@ -41,12 +42,28 @@ def get_lib():
     lib.geom_free_chain.argtypes = [ctypes.c_int64]
     lib.geom_states_free.argtypes = [ctypes.c_int64, ctypes.c_int64, d, ctypes.c_int, u8, i32]
     lib.geom_edge_free.argtypes = [ctypes.c_int64, ctypes.c_int64, d, d, u8, i32]
+    lib.geom_new_dual.restype = ctypes.c_int64
+    lib.geom_new_dual.argtypes = [ctypes.c_int64, d, d]
+    lib.geom_free_dual.argtypes = [ctypes.c_int64]
+    lib.geom_dual_states_free.argtypes = [ctypes.c_int64, ctypes.c_int64, d, ctypes.c_int, u8, i32]
     _lib = lib
     return lib
 
 
 def _ptr(a: np.ndarray, ctype):
     return a.ctypes.data_as(ctypes.POINTER(ctype))
+
+
+def _states_free(fn, handle, scene, qs: np.ndarray):
+    """(free (n,) bool, n_checks (n,) int32) of the n rows of qs."""
+
+    qs = np.ascontiguousarray(qs, np.float64)
+    n = len(qs)
+    free = np.zeros(n, np.uint8)
+    cnt = np.zeros(n, np.int32)
+    fn(handle, scene, _ptr(qs, ctypes.c_double), n, _ptr(free, ctypes.c_uint8),
+       _ptr(cnt, ctypes.c_int32))
+    return free.astype(bool), cnt
 
 
 class GeomChain:
@@ -89,15 +106,7 @@ class GeomChain:
         )
 
     def states_free(self, qs: np.ndarray):
-        qs = np.ascontiguousarray(qs, np.float64)
-        n = len(qs)
-        free = np.zeros(n, np.uint8)
-        cnt = np.zeros(n, np.int32)
-        get_lib().geom_states_free(
-            self.handle, self._scene, _ptr(qs, ctypes.c_double), n,
-            _ptr(free, ctypes.c_uint8), _ptr(cnt, ctypes.c_int32),
-        )
-        return free.astype(bool), cnt
+        return _states_free(get_lib().geom_states_free, self.handle, self._scene, qs)
 
     def edge_free(self, qa: np.ndarray, qb: np.ndarray):
         qa = np.ascontiguousarray(qa, np.float64)
@@ -119,3 +128,30 @@ class GeomChain:
             lib.geom_free_scene(self._scene)
             self._scene = None
         lib.geom_free_chain(self.handle)
+
+
+class GeomDual:
+    """Native oracle for the dual-arm rig (kuka14): one chain at two base
+    translations; box contact of both arms and cross-arm capsule pairs, as
+    envs/kuka2.py's device oracle. Rows of ``states_free`` are 2 * dof long,
+    the first arm's angles first."""
+
+    def __init__(self, arrays: dict, base1, base2, rrt_eps: float):
+        self._single = GeomChain(arrays, rrt_eps)
+        self._bases = [np.ascontiguousarray(b, np.float64) for b in (base1, base2)]
+        self.dof = 2 * self._single.dof
+        self.handle = get_lib().geom_new_dual(
+            self._single.handle, *(_ptr(b, ctypes.c_double) for b in self._bases)
+        )
+
+    def set_scene(self, centers: np.ndarray, halfs: np.ndarray):
+        self._single.set_scene(centers, halfs)
+
+    def states_free(self, qs: np.ndarray):
+        return _states_free(get_lib().geom_dual_states_free, self.handle,
+                            self._single._scene, qs)
+
+    def __del__(self):
+        # the native rig refers to the chain: free it first
+        if _lib is not None:
+            _lib.geom_free_dual(self.handle)

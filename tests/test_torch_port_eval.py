@@ -24,21 +24,34 @@ def fixture_path(config: str) -> Path:
 FIXTURE = fixture_path("kuka7")
 
 
+def protocol(config: str) -> dict:
+    """The reference protocol with the config's own overrides (snake7:
+    t_max 2000, JAX api/registry.py::scalar_overrides)."""
+
+    from gnn_motion_planning_tpu_torch.api.registry import scalar_overrides
+
+    return {**PROTOCOL, **scalar_overrides(config)}
+
+
 def jax_rows(indexes, config: str = "kuka7"):
     """Per-problem (success, c_explore, c_smooth, cost) from the JAX
-    package, with per-problem streams."""
+    package, with per-problem streams, at ``protocol(config)`` and with
+    ur5's smoother at its scale (JAX api/registry.py:306)."""
+
+    import numpy as np
 
     from gnn_motion_planning_tpu.api.eval_gnn import explore, path_cost
     from gnn_motion_planning_tpu.api.registry import str2env, str2models
     from gnn_motion_planning_tpu.config import problem_rng
 
     env, _ = str2env(config)
-    model, model_s = str2models(config)
+    scale = float(np.max(env.bound)) if config == "ur5" else 1.0
+    model, model_s = str2models(config, scale=scale)
     rows = []
     for index in indexes:
         env.rng = problem_rng(SEED, int(index))
         env.init_new_problem(int(index))
-        r = explore(env, model, model_s, True, **PROTOCOL)
+        r = explore(env, model, model_s, True, **protocol(config))
         rows.append(dict(
             index=int(index), success=bool(r["success"]), c_explore=int(r["c_explore"]),
             c_smooth=int(r["c_smooth"]), cost=path_cost(r["smooth_path"]),
@@ -56,7 +69,8 @@ def write_jax_rows(config: str = "kuka7", n: int = 5):
     path.parent.mkdir(exist_ok=True)
     path.write_text(json.dumps({
         "about": f"gnn_motion_planning_tpu.api.eval_gnn.explore on {config}, seed 1234, "
-                 "batch 500, k 30, t_max 500, JAX on the CPU; written by "
+                 f"batch 500, k 30, t_max {protocol(config)['t_max']} (the config's "
+                 "scalar_overrides applied), JAX on the CPU; written by "
                  "tests/test_torch_port_eval.py::write_jax_rows",
         "rows": jax_rows(indexes, config),
     }, indent=1) + "\n")

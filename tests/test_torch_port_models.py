@@ -144,15 +144,16 @@ def test_smoother_forward_matches_jax(problem, models, route):
     assert not np.allclose(got[1 : n_path - 1], path[1 : n_path - 1])  # interior rewritten
 
 
-CONFIGS = ["maze2easy", "maze3", "kuka13"]
+CONFIGS = ["maze2easy", "maze3", "kuka13", "ur5", "snake7", "kuka14"]
 
 
 @pytest.fixture(scope="module", params=CONFIGS)
 def config_case(request):
     """A config's problem-2000 node set (batch 100 and 500) and obstacle
-    tokens, with the JAX package's and the port's shipped models."""
+    tokens, with the JAX package's and the port's shipped models (ur5's
+    smoother at its scale, 2 pi, on both sides)."""
 
-    from gnn_motion_planning_tpu_torch.api.registry import str2env
+    from gnn_motion_planning_tpu_torch.api.registry import smoother_scale, str2env
 
     name = request.param
     env, _ = str2env(name, device="cpu")
@@ -169,14 +170,17 @@ def config_case(request):
         v[F : F + C] = np.asarray(coll, np.float32)
         return v, np.arange(2 * F) < F + C, F
 
-    jax_explorer, jax_smoother = jax_str2models(name)
-    explorer, smoother = str2models(name, device="cpu")
+    scale = smoother_scale(name, env)
+    jax_explorer, jax_smoother = jax_str2models(name, scale=scale)
+    explorer, smoother = str2models(name, device="cpu", scale=scale)
     return name, nodes, env.obs_tokens(), (jax_explorer, jax_smoother, explorer, smoother)
 
 
 def test_config_explorer_forward_matches_jax(config_case):
-    """The maze2 and maze3 explorers (width 32, 2-D obstacle tokens) and
-    kuka13's, at test_model_parity's tolerance with the same argmax."""
+    """The maze2 and maze3 explorers (width 32, 2-D obstacle tokens),
+    kuka13's, ur5's, kuka14's and snake7's (the fine-tuned
+    weights_snake_ft.npz, 2-D obstacle tokens), at test_model_parity's
+    tolerance with the same argmax."""
 
     _, nodes, (toks, mask), (jax_explorer, _, explorer, _) = config_case
     v, valid, F = nodes(100)
@@ -202,7 +206,8 @@ def test_config_explorer_forward_matches_jax(config_case):
 def test_config_smoother_forward_matches_jax(config_case):
     """maze2's smoother (smooth_2d_attv3.pt), maze3's (the scratch-trained
     smooth_3d_scratch.npz, the shipped smooth_3d_att.pt being the legacy
-    architecture) and kuka13's, at the same tolerance."""
+    architecture), kuka13's, ur5's (at scale 2 pi), kuka14's and snake7's,
+    at the same tolerance."""
 
     name, nodes, _, (_, jax_smoother, _, smoother) = config_case
     v, valid, F = nodes(500)
@@ -232,3 +237,5 @@ def test_config_smoother_forward_matches_jax(config_case):
         with np.load(asset_path("weights_jax/smooth_3d_scratch.npz")) as f:
             w = f["smooth_node.weight"]
         np.testing.assert_array_equal(smoother.smooth_node.weight.detach().numpy(), w)
+    assert smoother.cfg.scale == jax_smoother.cfg.scale
+    assert (smoother.cfg.scale > 6.28) == (name == "ur5")

@@ -38,7 +38,21 @@ Phases, each bracketed by a progress line with the elapsed seconds:
    against the same oracle with the plain version of ``capsules_hit``, and
    entry A against its plain version on the very inputs the oracle gave it
    (ur5 C = 43, O = 16; kuka14 C = 48, O = 16; snake7 C = 10, O = the
-   problem's occupied cells). Decisions and counts must be equal.
+   problem's occupied cells). Decisions and counts must be equal. Then the
+   lane axis (a launch takes L problems, each lane with its own scene) at
+   the shapes the batched and serve paths give it: entry B on kuka7 and
+   kuka14's oracle with entry A, at L = 25 and 8 lanes of one search pop's
+   2 + k_max states and of 4,096 (the batched flat projection, which
+   checks the successful lanes of a group at once), every lane its own
+   problem (2000 on, whose active boxes differ), and L = 1 of 4,096 (the
+   scalar flat projection) and of 2,000 (serve sampling), each against its
+   plain version. And states 2**-17 to 2**-20 of a segment from
+   a contact boundary (problems 2000 and 2001 of kuka7, ur5, kuka14 and
+   snake7, bisected on the CPU): the kernel against its plain version, and,
+   on the CPU's own capsule endpoints, the narrow phase on the card (entry
+   A, its plain version, the pair families) against the CPU. All enforced;
+   the whole oracle on the card against the CPU is reported (FK takes cos
+   and sin from other libraries there).
 3. timing at the main path's batches, B = 4096 (flat projection), 31 (edge
    check) and 1 (goal state), kuka7 problem 2000: each entry point's
    wrapper against its plain version, and entry B against the composition
@@ -56,9 +70,8 @@ Phases, each bracketed by a progress line with the elapsed seconds:
    the count that agrees (reported, as in phase 2); every path checked as
    in phase 2; kuka13 must launch ``chain_states_free`` and not
    ``capsules_hit``. Then, for maze2easy and maze3, seconds per stage (a
-   second pass), the oracle's own seconds in a third pass that
-   synchronises around every oracle call, and the oracle's time and aten
-   ops per call at the main path's batches; for every config but
+   second pass) and the oracle's time and aten ops per call at the main
+   path's batches; for every config but
    maze2hard, the device busy share of its first problem under
    torch.profiler.
 5. end to end: ``eval_gnn`` on ur5, kuka14 and snake7 at full width and at
@@ -66,9 +79,29 @@ Phases, each bracketed by a progress line with the elapsed seconds:
    than one round), three problems each beside the JAX fixture rows, paths
    checked as in phase 2; each must launch ``capsules_hit`` (entry A, the
    box family) and not ``chain_states_free``. Then entry A's timing at B =
-   4096 on each config's shapes, and for ur5 and snake7 the stage table,
-   the synchronised-oracle pass and the oracle's ms and aten ops per call;
-   the device busy share of each config's first problem.
+   4096 on each config's shapes, and for ur5 and snake7 the stage table
+   (snake7: problems 2000 and 2001) and the oracle's ms and aten ops per
+   call; the device busy share of each config's first problem.
+
+6. the batched sweep: ``eval_gnn_batched`` at each config's protocol on
+   kuka7 (25 lanes, problems 2000-2024), kuka14 (7 lanes, 2000-2007 but
+   2006, whose failing first round is an exhaustive search too long for
+   the watchdog twice over: ``tools/torch_port_fallback.py`` runs that
+   cell) and maze2easy (25 lanes, 2000-2024). The launch counts, set to 0 just before
+   and read just after, must show ``chain_states_free`` on kuka7 and
+   ``capsules_hit`` on kuka14. Rows 2000-2004 beside the JAX fixture rows
+   (reported); every path checked; the stats of the first lane group;
+   every batched row against the port's scalar ``eval_gnn`` row of the
+   same problem in the same call (reported) and problems a second of both.
+   Then the lane shapes' timing: both entries at kuka7's 25 x 31, 8 x 31,
+   25 x 4,096, 8 x 4,096, 1 x 4,096 and 1 x 2,000, and entry A on kuka14's
+   lane oracle inputs at the same shapes.
+7. the serve path: ``eval_gnn_serve`` on kuka7 and maze2easy, problems
+   2000-2009, with p50 and p95; kuka7's must launch
+   ``chain_states_free``. On problem 2000 of each, ``serve_full`` against
+   the composition it fuses (serve_round, host backtrack, model_smooth):
+   checks equal, the path within 1e-6 and the smoothed path within 1e-5
+   (enforced).
 
 A watchdog ends a stalled run with every thread's stack and a non-zero
 exit. Without a CUDA device, or outside a checkout of the repository, the
@@ -98,6 +131,20 @@ PHASE5_PROBLEMS = {"ur5": [2000, 2001, 2002], "kuka14": [2000, 2001, 2002],
                    "snake7": [2000, 2001, 2004]}
 # the configs whose oracle is the fused kernel (entry B)
 FUSED_CONFIGS = ("kuka7", "kuka13")
+# the lane shapes of the batched and serve paths: (lanes, configurations a
+# lane), None for one search pop's 2 + k_max states; L x 4096 is the
+# batched flat projection of L successful lanes, 1 x 2000 serve sampling
+LANE_SHAPES = ((25, None), (8, None), (25, 4096), (8, 4096), (1, 4096), (1, 2000))
+NEAR_CONFIGS = ("kuka7", "ur5", "kuka14", "snake7")
+# phase 6: (config, lanes, problems); phase 7: problems a config. kuka14
+# leaves out 2006: its first round fails only when its frontier runs dry, a
+# search the batched path runs twice (lane search, then the scalar
+# fallback), too long for the watchdog; tools/torch_port_fallback.py runs
+# and times that cell on the card, and the CPU tests hold it
+BATCHED_CELLS = (("kuka7", 25, list(range(2000, 2025))),
+                 ("kuka14", 7, [2000, 2001, 2002, 2003, 2004, 2005, 2007]),
+                 ("maze2easy", 25, list(range(2000, 2025))))
+SERVE_CELLS = {"kuka7": list(range(2000, 2010)), "maze2easy": list(range(2000, 2010))}
 SEED = 1234
 # H100 SXM peaks (NVIDIA data sheet): fp32 outside the tensor cores, HBM3
 PEAK_FP32_FLOPS = 67e12
@@ -142,7 +189,24 @@ def random_scene(seed: int, device):
     centers = rng.uniform(-0.8, 0.8, (O, 3)).astype(np.float32)
     halfs = rng.uniform(0.05, 0.4, (O, 3)).astype(np.float32)
     mask = rng.rand(O) > 0.3
-    return tuple(torch.as_tensor(a, device=device) for a in (p0, p1, r, centers, halfs, mask))
+    return lane_args(tuple(torch.as_tensor(a, device=device)
+                          for a in (p0, p1, r, centers, halfs, mask)))
+
+
+def lane_args(args):
+    """Entry A's arguments for one problem: a lane axis of 1 on the
+    endpoints and the scene (the radii are shared)."""
+
+    p0, p1, r, centers, halfs, mask = args
+    return p0[None], p1[None], r, centers[None], halfs[None], mask[None]
+
+
+def lane_scene(scene):
+    """One problem's scene as a stacked scene of one lane."""
+
+    from gnn_motion_planning_tpu_torch.envs.base import one_lane
+
+    return one_lane(scene)
 
 
 def protocol(config: str) -> dict:
@@ -181,7 +245,7 @@ def kuka7_scene(env, batch: int, seed: int = 0):
     q = torch.as_tensor(qs.astype(np.float32), device=env.device)
     p0, p1, r = capsules_world(env.chain, q)
     sc = env.device_scene()
-    return p0.contiguous(), p1.contiguous(), r, sc.centers, sc.halfs, sc.mask
+    return lane_args((p0.contiguous(), p1.contiguous(), r, sc.centers, sc.halfs, sc.mask))
 
 
 def check_kernel(name: str, args) -> int:
@@ -193,10 +257,10 @@ def check_kernel(name: str, args) -> int:
     got = capsule.capsules_hit(*args)
     want = capsule.capsules_hit_reference(*args)
     n_diff = int((got != want).sum())
-    B, C = args[0].shape[:2]
+    L, B, C = args[0].shape[:3]
     print(
-        f"  capsules_hit {name}: B={B} C={C} O={args[3].shape[0]} "
-        f"lanes={capsule.lanes_for(B)} hits={int(want.sum())} differing={n_diff}",
+        f"  capsules_hit {name}: L={L} B={B} C={C} O={args[3].shape[1]} "
+        f"lanes={capsule.lanes_for(L * B)} hits={int(want.sum())} differing={n_diff}",
         flush=True,
     )
     return n_diff
@@ -212,16 +276,17 @@ def check_chain(name: str, env, qs):
     from gnn_motion_planning_tpu_torch.envs.kinematics import capsules_world
     from gnn_motion_planning_tpu_torch.ops import capsule
 
-    packed, scene = capsule.pack_chain(env.chain), env.device_scene()
+    packed, scene = capsule.pack_chain(env.chain), lane_scene(env.device_scene())
     B, C = qs.shape[0], env.chain.cap_r.shape[0]
-    want_free, want_cnt = capsule.chain_states_free_reference(qs, packed, scene)
-    ends = (torch.empty(B, C, 3, device=qs.device), torch.empty(B, C, 3, device=qs.device))
+    want_free, want_cnt = capsule.chain_states_free_reference(qs[None], packed, scene)
+    ends = (torch.empty(1, B, C, 3, device=qs.device), torch.empty(1, B, C, 3, device=qs.device))
     n_diff = 0
     for endpoints in (None, ends):
-        free, cnt = capsule.chain_states_free(qs, packed, scene, endpoints=endpoints)
+        free, cnt = capsule.chain_states_free(qs[None], packed, scene, endpoints=endpoints)
         n_diff += int((free != want_free).sum()) + int((cnt != want_cnt).sum())
     p0, p1, _ = capsules_world(env.chain, qs)
-    rows = torch.isfinite(qs).all(dim=1)
+    p0, p1 = p0[None], p1[None]
+    rows = torch.isfinite(qs).all(dim=1)[None]
     err = max(float((ends[0] - p0)[rows].abs().max()), float((ends[1] - p1)[rows].abs().max()))
     print(
         f"  chain_states_free {name}: B={B} J={packed.sizes[0]} C={C} "
@@ -253,21 +318,25 @@ def plain_box_family(env, record: list):
         module.capsules_hit = capsule.capsules_hit
 
 
-def check_env_oracle(config: str, env, qs):
+def check_env_oracle(config: str, env, qs, scene=None):
     """An entry-A env's oracle with the kernel against the same oracle with
     the plain version, and entry A against its plain version on the inputs
-    the oracle gave it. Returns (differing oracle decisions and counts,
-    differing kernel decisions, entry A's inputs)."""
+    the oracle gave it; ``qs`` (B, d) in the env's current scene, or
+    (L, B, d) in the stacked ``scene`` of L problems. Returns (differing
+    oracle decisions and counts, differing kernel decisions, entry A's
+    inputs)."""
 
-    kern, scene = env.kernels(), env.device_scene()
+    kern = env.kernels()
+    scene = env.device_scene() if scene is None else scene
     calls: list = []
     with plain_box_family(env, calls):
         want_free, want_cnt = kern.batch_state_free(scene, qs)
     free, cnt = kern.batch_state_free(scene, qs)
     n_oracle = int((free != want_free).sum()) + int((cnt != want_cnt).sum())
-    print(f"  {config} oracle problem {env.index}: B={len(qs)} valid={int(want_cnt.sum())} "
+    where = f"problem {env.index}" if qs.dim() == 2 else f"L={qs.shape[0]} lanes"
+    print(f"  {config} oracle {where}: B={qs.shape[-2]} valid={int(want_cnt.sum())} "
           f"free={int(want_free.sum())} differing={n_oracle}", flush=True)
-    n_kernel = sum(check_kernel(f"{config} problem {env.index}", args) for args in calls)
+    n_kernel = sum(check_kernel(f"{config} {where}", args) for args in calls)
     return n_oracle, n_kernel, calls[0]
 
 
@@ -329,16 +398,20 @@ def count_ops(fn) -> int:
     return sum(1 for e in prof.events() if e.name.startswith("aten::") and e.cpu_parent is None)
 
 
-def pairs_needed(contacts):
-    """(B,) pairs a configuration needs in the kernels' order: up to its
-    first contact, capsule-major, or all C x A when there is none."""
+def pairs_needed(contacts, active):
+    """(L, B) pairs a configuration needs in the kernels' order: up to its
+    first contact, capsule-major over its lane's ``active[l]`` boxes, or
+    all of them when there is none."""
 
     import torch
 
-    flat = contacts.flatten(1)
-    n = flat.shape[1]
-    first = torch.where(flat.any(dim=1), flat.int().argmax(dim=1) + 1, n)
-    return first.to(torch.int64)
+    out = []
+    for lane, a in enumerate(active.tolist()):
+        flat = contacts[lane, :, :, :a].flatten(1)
+        n = flat.shape[1]
+        first = torch.where(flat.any(dim=1), flat.int().argmax(dim=1) + 1, n)
+        out.append(first.to(torch.int64))
+    return torch.stack(out)
 
 
 def bound_ms(flops: float, nbytes: float):
@@ -349,43 +422,45 @@ def bound_ms(flops: float, nbytes: float):
     return max(ops_ms, bytes_ms), ("operations" if ops_ms >= bytes_ms else "bytes")
 
 
-def bare_launchers(env, batch: int, seed: int):
-    """Bare launches of both entry points at ``batch`` configurations uniform
-    in the limits, in the env's current scene: (entry A's launch, entry B's
-    launch), each taking the lane-group width, and the inputs (qs, entry A's
-    arguments, the packed chain)."""
+def bare_launchers(env, batch: int, seed: int, lanes: int = 1, scene=None):
+    """Bare launches of both entry points at ``batch`` configurations a lane
+    uniform in the limits, in ``lanes`` lanes of ``scene`` (stacked; by
+    default the env's current scene, one lane): (entry A's launch, entry
+    B's launch), each taking the lane-group width, and the inputs (qs
+    (L, B, dof), entry A's arguments, the packed chain, the scene)."""
 
     import numpy as np
     import torch
 
-    from gnn_motion_planning_tpu_torch.envs.kinematics import capsules_world
+    from gnn_motion_planning_tpu_torch.envs.kinematics import lane_capsules
     from gnn_motion_planning_tpu_torch.ops import capsule
 
-    chain, scene = env.chain, env.device_scene()
+    chain = env.chain
+    scene = lane_scene(env.device_scene()) if scene is None else scene
     packed = capsule.pack_chain(chain)
     J, C, dof = packed.sizes
-    O = scene.centers.shape[0]
+    O = scene.centers.shape[1]
     lo, hi = chain.lower.cpu().numpy(), chain.upper.cpu().numpy()
-    qs = np.random.RandomState(seed).uniform(lo, hi, (batch, dof))
+    qs = np.random.RandomState(seed).uniform(lo, hi, (lanes, batch, dof))
     qs = torch.as_tensor(qs.astype(np.float32), device=env.device)
-    p0, p1, r = capsules_world(chain, qs)
-    args_a = (p0.contiguous(), p1.contiguous(), r, scene.centers, scene.halfs, scene.mask)
+    p0, p1 = lane_capsules(chain, qs)
+    args_a = (p0, p1, chain.cap_r, scene.centers, scene.halfs, scene.mask)
     lib = capsule.load_library()
     stream = torch.cuda.current_stream().cuda_stream
-    out = torch.empty(batch, dtype=torch.bool, device=env.device)
-    cnt = torch.empty(batch, dtype=torch.int32, device=env.device)
+    out = torch.empty((lanes, batch), dtype=torch.bool, device=env.device)
+    cnt = torch.empty((lanes, batch), dtype=torch.int32, device=env.device)
     ptr = [x.data_ptr() for x in args_a]
 
-    def launch_a(lanes):
-        return lib.capsules_hit_launch(*ptr, batch, C, O, out.data_ptr(), lanes, stream)
+    def launch_a(width):
+        return lib.capsules_hit_launch(*ptr, lanes, batch, C, O, out.data_ptr(), width, stream)
 
-    def launch_b(lanes):
+    def launch_b(width):
         return lib.chain_states_free_launch(
-            qs.data_ptr(), batch, dof, packed.floats.data_ptr(), packed.ints.data_ptr(), J, C,
-            scene.centers.data_ptr(), scene.halfs.data_ptr(), scene.mask.data_ptr(), O,
-            out.data_ptr(), cnt.data_ptr(), None, None, lanes, stream)
+            qs.data_ptr(), lanes, batch, dof, packed.floats.data_ptr(), packed.ints.data_ptr(),
+            J, C, scene.centers.data_ptr(), scene.halfs.data_ptr(), scene.mask.data_ptr(), O,
+            out.data_ptr(), cnt.data_ptr(), None, None, width, stream)
 
-    return launch_a, launch_b, (qs, args_a, packed)
+    return launch_a, launch_b, (qs, args_a, packed, scene)
 
 
 def lane_sweep(name: str, env, batch: int = 4096) -> dict:
@@ -408,69 +483,75 @@ def lane_sweep(name: str, env, batch: int = 4096) -> dict:
     return med
 
 
-def time_batch(env, batch: int, card: str) -> dict:
-    """Both entry points at one batch of configurations uniform in the limits,
-    in the env's current scene: wrapper, plain version, bare kernel, bounds
-    from this data."""
+def time_batch(env, batch: int, card: str, lanes: int = 1, scene=None, label: str = "",
+               reps: int = 21, calls: int = 10) -> dict:
+    """Both entry points at one shape of configurations uniform in the
+    limits, ``lanes`` lanes of ``batch`` in ``scene`` (by default the env's
+    current scene, one lane): wrapper, plain version (``reps`` medians of
+    ``calls`` calls each), bare kernel, bounds from this data."""
 
     import torch
 
-    from gnn_motion_planning_tpu_torch.envs.kinematics import capsules_world
+    from gnn_motion_planning_tpu_torch.envs.kinematics import lane_capsules
     from gnn_motion_planning_tpu_torch.ops import capsule
 
-    chain, scene = env.chain, env.device_scene()
-    launch_a, launch_b, (qs, args_a, packed) = bare_launchers(env, batch, seed=batch)
+    chain = env.chain
+    launch_a, launch_b, (qs, args_a, packed, scene) = bare_launchers(
+        env, batch, seed=batch + lanes, lanes=lanes, scene=scene)
     J, C, dof = packed.sizes
-    O = scene.centers.shape[0]
+    O = scene.centers.shape[1]
     lo, hi = chain.lower, chain.upper
+    total = lanes * batch
 
     def torch_fk_and_entry_a():
         # the oracle before the fused kernel: limits, torch FK, entry A
-        valid = ((qs >= lo) & (qs <= hi)).all(dim=1)
-        e0, e1, er = capsules_world(chain, qs)
-        hit = capsule.capsules_hit(e0.contiguous(), e1.contiguous(), er, scene.centers,
-                                   scene.halfs, scene.mask)
+        valid = ((qs >= lo) & (qs <= hi)).all(dim=-1)
+        e0, e1 = lane_capsules(chain, qs)
+        hit = capsule.capsules_hit(e0, e1, chain.cap_r, scene.centers, scene.halfs, scene.mask)
         return valid & ~hit, valid.to(torch.int32)
 
     t = time_turns({
         "B": lambda: capsule.chain_states_free(qs, packed, scene),
         "B plain": lambda: capsule.chain_states_free_reference(qs, packed, scene),
         "torch FK + A": torch_fk_and_entry_a,
-    })
+    }, reps=reps, calls=calls)
     t.update(time_turns({
         "A": lambda: capsule.capsules_hit(*args_a),
         "A plain": lambda: capsule.capsules_hit_reference(*args_a),
-    }))
+    }, reps=reps, calls=calls))
 
     t["B ops"] = count_ops(lambda: capsule.chain_states_free(qs, packed, scene))
     t["torch FK + A ops"] = count_ops(torch_fk_and_entry_a)
 
-    t["A bare"] = bare_ms(lambda: launch_a(capsule.lanes_for(batch)))
-    t["B bare"] = bare_ms(lambda: launch_b(capsule.lanes_for(batch)))
+    t["A bare"] = bare_ms(lambda: launch_a(capsule.lanes_for(total)))
+    t["B bare"] = bare_ms(lambda: launch_b(capsule.lanes_for(total)))
 
     # work this run's data needs, in the kernels' order: pairs up to the
-    # first contact; entry B skips FK and pairs of out-of-limit states
-    n_active = int(scene.mask.sum())
-    pairs = pairs_needed(capsule.capsule_contacts(*args_a))
-    valid = ((qs >= lo) & (qs <= hi)).all(dim=1)
+    # first contact (each lane over its own active boxes); entry B skips FK
+    # and pairs of out-of-limit states
+    active = scene.mask.sum(dim=1)  # (L,)
+    contacts = capsule.capsule_contacts(*args_a)
+    pairs = pairs_needed(contacts, active)
+    valid = ((qs >= lo) & (qs <= hi)).all(dim=-1)
     ops_a = int(pairs.sum()) * capsule.OPS_PER_PAIR
-    ops_b = (batch * dof * capsule.OPS_PER_DOF + int(valid.sum()) * (
+    ops_b = (total * dof * capsule.OPS_PER_DOF + int(valid.sum()) * (
         J * capsule.OPS_PER_JOINT + C * capsule.OPS_PER_CAPSULE)
         + int(pairs[valid].sum()) * capsule.OPS_PER_PAIR)
-    scene_bytes = 4 * 6 * O + O
-    bytes_a = 4 * (2 * batch * C * 3 + C) + scene_bytes + batch
-    bytes_b = 4 * batch * dof + 4 * sum(capsule.packed_lengths(J, C, dof)) + \
-        scene_bytes + batch * 5
+    scene_bytes = lanes * (4 * 6 * O + O)
+    bytes_a = 4 * (2 * total * C * 3 + C) + scene_bytes + total
+    bytes_b = 4 * total * dof + 4 * sum(capsule.packed_lengths(J, C, dof)) + \
+        scene_bytes + total * 5
     t["A bound"], t["A bound_by"] = bound_ms(ops_a, bytes_a)
     t["B bound"], t["B bound_by"] = bound_ms(ops_b, bytes_b)
-    all_pair_ops = batch * C * n_active * capsule.OPS_PER_PAIR
+    all_pair_ops = batch * C * int(active.sum()) * capsule.OPS_PER_PAIR
     t["A bound all pairs"], _ = bound_ms(all_pair_ops, bytes_a)
     t["B bound all pairs"], _ = bound_ms(
-        all_pair_ops + batch * (J * capsule.OPS_PER_JOINT + C * capsule.OPS_PER_CAPSULE
-                              + dof * capsule.OPS_PER_DOF), bytes_b)
+        all_pair_ops + total * (J * capsule.OPS_PER_JOINT + C * capsule.OPS_PER_CAPSULE
+                                + dof * capsule.OPS_PER_DOF), bytes_b)
+    where = label or f"kuka7 problem {env.index}"
     print(
-        f"  B={batch} (kuka7 problem {env.index}, C={C} active={n_active}, "
-        f"pairs needed {int(pairs.sum())} of {batch * C * n_active}; {card})\n"
+        f"  L={lanes} B={batch} ({where}, C={C} active={active.tolist() if lanes > 1 else int(active)}, "
+        f"pairs needed {int(pairs.sum())} of {batch * C * int(active.sum())}; {card})\n"
         f"    capsules_hit: wrapper {t['A']:.4f} ms, bare {t['A bare']:.4f} ms, "
         f"plain {t['A plain']:.4f} ms, bound {t['A bound']:.3g} ms ({t['A bound_by']}; "
         f"all pairs {t['A bound all pairs']:.3g} ms)\n"
@@ -485,7 +566,7 @@ def time_batch(env, batch: int, card: str) -> dict:
     return t
 
 
-def time_entry_a(config: str, args, card: str) -> dict:
+def time_entry_a(config: str, args, card: str, reps: int = 21, calls: int = 10) -> dict:
     """Entry A on one oracle call's inputs: wrapper and plain version (CUDA
     events around 10 calls, median of 21, in turns), the bare kernel (200
     launches through its C entry point) and the bound from this data."""
@@ -494,34 +575,32 @@ def time_entry_a(config: str, args, card: str) -> dict:
 
     from gnn_motion_planning_tpu_torch.ops import capsule
 
-    B, C = args[0].shape[:2]
-    O = args[3].shape[0]
+    L, B, C = args[0].shape[:3]
+    O = args[3].shape[1]
     t = time_turns({"A": lambda: capsule.capsules_hit(*args),
-                    "A plain": lambda: capsule.capsules_hit_reference(*args)})
+                    "A plain": lambda: capsule.capsules_hit_reference(*args)},
+                   reps=reps, calls=calls)
     lib = capsule.load_library()
     stream = torch.cuda.current_stream().cuda_stream
-    out = torch.empty(B, dtype=torch.bool, device=args[0].device)
+    out = torch.empty((L, B), dtype=torch.bool, device=args[0].device)
     ptr = [x.data_ptr() for x in args]
     t["A bare"] = bare_ms(lambda: lib.capsules_hit_launch(
-        *ptr, B, C, O, out.data_ptr(), capsule.lanes_for(B), stream))
-    n_active = int(args[5].sum())
-    pairs = int(pairs_needed(capsule.capsule_contacts(*args)).sum())
-    nbytes = 4 * (2 * B * C * 3 + C) + 4 * 6 * O + O + B
+        *ptr, L, B, C, O, out.data_ptr(), capsule.lanes_for(L * B), stream))
+    active = args[5].sum(dim=1)
+    pairs = int(pairs_needed(capsule.capsule_contacts(*args), active).sum())
+    nbytes = 4 * (2 * L * B * C * 3 + C) + L * (4 * 6 * O + O) + L * B
     t["A bound"], t["A bound_by"] = bound_ms(pairs * capsule.OPS_PER_PAIR, nbytes)
-    print(f"  capsules_hit {config}: B={B} C={C} O={O} active={n_active} pairs needed {pairs} "
-          f"of {B * C * n_active}: wrapper {t['A']:.4f} ms, bare {t['A bare']:.4f} ms, "
-          f"plain {t['A plain']:.4f} ms, bound {t['A bound']:.3g} ms ({t['A bound_by']}; "
-          f"{card})", flush=True)
+    print(f"  capsules_hit {config}: L={L} B={B} C={C} O={O} active={active.tolist()} "
+          f"pairs needed {pairs} of {B * C * int(active.sum())}: wrapper {t['A']:.4f} ms, "
+          f"bare {t['A bare']:.4f} ms, plain {t['A plain']:.4f} ms, bound "
+          f"{t['A bound']:.3g} ms ({t['A bound_by']}; {card})", flush=True)
     return t
 
 
-def stage_breakdown(config: str, env, model, model_s, indexes, oracle: bool = False) -> dict:
+def stage_breakdown(config: str, env, model, model_s, indexes) -> dict:
     """Seconds per stage of eval_gnn over ``indexes``, from host clocks
     around each stage with a device synchronise on both sides (a second
-    pass over the same problems, after the main path's own run). With
-    ``oracle``, the env's oracle calls are timed the same way too, which
-    adds a synchronise to every search pop: their sum bounds the oracle's
-    share from above."""
+    pass over the same problems, after the main path's own run)."""
 
     import torch
 
@@ -540,13 +619,6 @@ def stage_breakdown(config: str, env, model, model_s, indexes, oracle: bool = Fa
             return out
         return wrapper
 
-    saved_kernels, saved_planner = env._kernels, getattr(env, "_torch_planner", None)
-    if oracle:
-        kern = env.kernels()
-        env._kernels = kern._replace(
-            edge_free=timed("oracle edge_free", kern.edge_free),
-            batch_state_free=timed("oracle state_free", kern.batch_state_free))
-        env._torch_planner = None
     planner = evaluation.get_planner(env)
     saved = (evaluation.build_rgg_edges, evaluation.explorer_forward, evaluation.smoother_forward,
              planner.round_core, planner.project_cheap)
@@ -564,7 +636,6 @@ def stage_breakdown(config: str, env, model, model_s, indexes, oracle: bool = Fa
         (evaluation.build_rgg_edges, evaluation.explorer_forward, evaluation.smoother_forward,
          planner.round_core, planner.project_cheap) = saved
         del env.sample_n_points
-        env._kernels, env._torch_planner = saved_kernels, saved_planner
     totals["all"] = time.perf_counter() - t0
     return totals
 
@@ -721,6 +792,258 @@ def time_oracle(env, card: str) -> None:
         f"{name} {t[name]:.4f} ms, {ops[name]} aten ops" for name in fns) + f" ({card})", flush=True)
 
 
+def stacked_scenes(env, indexes):
+    """The scenes of problems ``indexes`` stacked along a lane axis."""
+
+    from gnn_motion_planning_tpu_torch.envs.base import stack_scenes
+
+    scenes = []
+    for index in indexes:
+        env.init_new_problem(index)
+        scenes.append(env.device_scene())
+    return stack_scenes(scenes)
+
+
+def lane_configs(env, lanes: int, batch: int, seed: int):
+    """(lanes, batch, d) configurations, each lane as ``chain_configs``."""
+
+    import torch
+
+    return torch.stack([chain_configs(env, batch, seed + i) for i in range(lanes)])
+
+
+def check_chain_lanes(name: str, env, qs, scene) -> int:
+    """Entry B over L lanes of per-problem scenes against its plain version;
+    returns the differing decisions and counts (must be 0)."""
+
+    from gnn_motion_planning_tpu_torch.ops import capsule
+
+    packed = capsule.pack_chain(env.chain)
+    want_free, want_cnt = capsule.chain_states_free_reference(qs, packed, scene)
+    free, cnt = capsule.chain_states_free(qs, packed, scene)
+    n_diff = int((free != want_free).sum()) + int((cnt != want_cnt).sum())
+    L, B = qs.shape[:2]
+    print(f"  chain_states_free {name}: L={L} B={B} lanes={capsule.lanes_for(L * B)} "
+          f"active={scene.mask.sum(dim=1).tolist()} valid={int(want_cnt.sum())} "
+          f"free={int(want_free.sum())} free a lane={want_free.sum(dim=1).tolist()} "
+          f"differing={n_diff}", flush=True)
+    return n_diff
+
+
+def near_contact_states(env, steps=(17, 18, 19, 20), n_uniform: int = 2048):
+    """States 2**-17 to 2**-20 of a segment from the oracle's contact
+    boundary (the inputs of tests/test_torch_port_arms.py::
+    test_near_contact_distances_equal_xla): bisection between free and
+    colliding uniform states with the env's oracle, 512 a depth."""
+
+    import numpy as np
+    import torch
+
+    kern, scene = env.kernels(), env.device_scene()
+
+    def free_fn(q):
+        return kern.batch_state_free(scene, torch.as_tensor(q, device=env.device))[0].cpu().numpy()
+
+    pr = np.array(env.pose_range)
+    qs = np.random.RandomState(env.index).uniform(
+        pr[:, 0], pr[:, 1], (n_uniform, env.config_dim)).astype(np.float32)
+    ok = free_fn(qs)
+    m = min(int(ok.sum()), int((~ok).sum()), 256)
+    lo, hi = qs[ok][:m].astype(np.float64), qs[~ok][:m].astype(np.float64)
+    out = []
+    for k in range(1, max(steps) + 1):
+        mid = 0.5 * (lo + hi)
+        f = free_fn(mid.astype(np.float32))
+        lo = np.where(f[:, None], mid, lo)
+        hi = np.where(f[:, None], hi, mid)
+        if k in steps:
+            out.append(np.concatenate([lo, hi]).astype(np.float32))
+    return np.concatenate(out)
+
+
+@contextlib.contextmanager
+def narrow_phase_calls(env, record: list):
+    """Record the arguments of every narrow-phase call an env's oracle makes
+    (entry A for the box family, ``pair_contacts`` for the self and
+    cross-arm pairs) while it runs as usual."""
+
+    module = sys.modules[type(env).__module__]
+    saved = {name: getattr(module, name) for name in ("capsules_hit", "pair_contacts")
+             if hasattr(module, name)}
+
+    def recorder(name, fn):
+        def call(*args):
+            record.append((name, args))
+            return fn(*args)
+        return call
+
+    for name, fn in saved.items():
+        setattr(module, name, recorder(name, fn))
+    try:
+        yield
+    finally:
+        for name, fn in saved.items():
+            setattr(module, name, fn)
+
+
+def _to(x, dev):
+    """Tensors, and tuples of them, moved to ``dev``."""
+
+    import torch
+
+    if isinstance(x, torch.Tensor):
+        return x.to(dev)
+    if isinstance(x, tuple):
+        moved = [_to(t, dev) for t in x]
+        return type(x)(*moved) if hasattr(x, "_fields") else tuple(moved)
+    return x
+
+
+def check_near_contact(config: str, dev) -> int:
+    """Near-contact states (bisected on the CPU) on the card. Enforced: the
+    oracle with the kernel equals the same oracle with the kernel's plain
+    version on the card; and fed the CPU's own capsule endpoints, the
+    narrow phase (entry A and its plain version, the pair families) on the
+    card equals the CPU, whose fused multiply-adds it forms in float64
+    (``envs/kinematics.py::fma32``). Reported: the whole oracle on the card
+    against the CPU, whose FK takes cos and sin otherwise. Returns the
+    enforced differing decisions (must be 0)."""
+
+    import torch
+
+    from gnn_motion_planning_tpu_torch.api.registry import str2env
+    from gnn_motion_planning_tpu_torch.envs.kinematics import lane_capsules
+    from gnn_motion_planning_tpu_torch.ops import capsule
+
+    cpu_env = str2env(config, device="cpu")[0]
+    card_env = str2env(config, device=dev)[0]
+    n_uniform = 16384 if config in FUSED_CONFIGS else 2048  # kuka7: few boxes
+    n_diff = 0
+    for index in (2000, 2001):
+        cpu_env.init_new_problem(index)
+        card_env.init_new_problem(index)
+        qs = near_contact_states(cpu_env, n_uniform=n_uniform)
+        q = torch.as_tensor(qs, device=dev)
+        calls: list = []
+        with narrow_phase_calls(cpu_env, calls):
+            cpu_free, _ = cpu_env.kernels().batch_state_free(cpu_env.device_scene(),
+                                                            torch.as_tensor(qs))
+        kern, scene = card_env.kernels(), card_env.device_scene()
+        free, cnt = kern.batch_state_free(scene, q)
+        if config in FUSED_CONFIGS:
+            packed = capsule.pack_chain(card_env.chain)
+            pf, pc = capsule.chain_states_free_reference(q[None], packed, lane_scene(scene))
+            kernel_vs_plain = int((free != pf[0]).sum()) + int((cnt != pc[0]).sum())
+            # the narrow phase on the CPU's endpoints
+            e0, e1 = lane_capsules(cpu_env.chain, torch.as_tensor(qs)[None])
+            sc = cpu_env.device_scene()
+            calls = [("capsules_hit", (e0, e1, cpu_env.chain.cap_r, *lane_scene(sc)))]
+        else:
+            n_oracle, n_kernel, _ = check_env_oracle(config, card_env, q)
+            kernel_vs_plain = n_oracle + n_kernel
+        narrow = 0
+        module = sys.modules[type(cpu_env).__module__]
+        for name, args in calls:
+            card_args = _to(args, dev)
+            if name == "capsules_hit":
+                want = capsule.capsules_hit_reference(*args)
+                got = [capsule.capsules_hit_reference(*card_args), capsule.capsules_hit(*card_args)]
+            else:
+                want = module.pair_contacts(*args)
+                got = [module.pair_contacts(*card_args)]
+            narrow += sum(int((g.cpu() != want).sum()) for g in got)
+        oracle_vs_cpu = int((free.cpu() != cpu_free).sum())
+        print(f"  near contact {config} problem {index}: {len(qs)} states at 2**-17..2**-20, "
+              f"free={int(cpu_free.sum())}; kernel vs plain version differing={kernel_vs_plain}; "
+              f"narrow phase on the CPU's endpoints, card vs CPU ({len(calls)} calls) "
+              f"differing={narrow}; whole oracle card vs CPU (FK's cos and sin differ) "
+              f"differing={oracle_vs_cpu} (reported)", flush=True)
+        n_diff += kernel_vs_plain + narrow
+    return n_diff
+
+
+def check_path(config: str, env, row, smooth_path) -> None:
+    """A solved problem's smoothed path is finite, starts at the start and
+    ends in the goal region."""
+
+    import numpy as np
+
+    if not row["success"]:
+        return
+    p = np.asarray(smooth_path)
+    env.init_new_problem(row["index"])
+    if p.ndim != 2 or p.shape[1] != env.config_dim or not np.isfinite(p).all():
+        raise AssertionError(f"{config} problem {row['index']}: bad path {p.shape}")
+    if not np.allclose(p[0], env.init_state, atol=1e-5):
+        raise AssertionError(f"{config} problem {row['index']}: path does not start at init")
+    if np.asarray(env.distance(p[-1], env.goal_state)).max() >= env.RRT_EPS:
+        raise AssertionError(f"{config} problem {row['index']}: path does not reach the goal")
+
+
+def print_group_stats(config: str, stats: list) -> None:
+    """The stats of the first lane group and of the scalar fallbacks."""
+
+    g = stats[0]
+    widths = [w for w, _ in g["search_rounds"]]
+    print(f"  stats {config} first group: {g['group_size']} lanes, sample {g['sample_s']} s, "
+          f"forward {g['forward_s']} s, search {g['search_s']} s in {len(widths)} calls "
+          f"(stacked widths {widths}), smooth {g['smooth_s']} s, overflow redos "
+          f"{g['smooth_overflow_redos']}, first-round failures {g['first_round_failures']}, "
+          f"group {g['group_s']} s", flush=True)
+    for extra in stats[1:]:
+        if "scalar_fallbacks" in extra:
+            print(f"  stats {config}: {extra['scalar_fallbacks']} scalar fallbacks in "
+                  f"{extra['fallback_s']} s", flush=True)
+
+
+def serve_composition(config: str, env, model, model_s, index: int) -> tuple:
+    """``serve_full`` against the composition it fuses, serve_round -> host
+    backtrack -> model_smooth, on the same draws (tests/test_batched_eval.py
+    :115-184). Returns (checks equal, path max diff, smoothed path max
+    diff)."""
+
+    import numpy as np
+    import torch
+
+    from gnn_motion_planning_tpu_torch.api.eval_gnn import model_smooth
+    from gnn_motion_planning_tpu_torch.api.planner_bundle import get_planner
+    from gnn_motion_planning_tpu_torch.api.serve import draw, explore_serve, serve_generator
+    from gnn_motion_planning_tpu_torch.config import problem_rng
+    from gnn_motion_planning_tpu_torch.graphs.knn import k_scaled
+    from gnn_motion_planning_tpu_torch.planners.gnn_explore import backtrack
+
+    batch = 500
+    env.rng = problem_rng(SEED, index)
+    env.init_new_problem(index)
+    c0 = env.collision_check_count
+    r = explore_serve(env, model, model_s, serve_generator(SEED, index, env.device), batch=batch)
+    fused = env.collision_check_count - c0
+
+    env.rng = problem_rng(SEED, index)
+    env.init_new_problem(index)
+    t = lambda a: torch.as_tensor(np.asarray(a, np.float32), device=env.device)  # noqa: E731
+    toks, tok_mask = env.obs_tokens()
+    res, v, prefix, n_coll, enough = get_planner(env).serve_round(
+        model, env.device_scene(), draw(env, serve_generator(SEED, index, env.device), 4 * batch),
+        t(env.init_state), t(env.goal_state), t(toks),
+        torch.as_tensor(tok_mask, device=env.device), batch, k_scaled(30, batch + 2), 5)
+    if not (bool(enough) and res.success and r["success"]):
+        raise AssertionError(f"{config} problem {index}: the serve round did not solve it")
+    v_np = v.cpu().numpy()
+    path = [v_np[i] for i in backtrack(res.prev.cpu().numpy(), res.success_node)]
+    F = batch + 2
+    c1 = env.collision_check_count
+    smooth = model_smooth(model_s, [v_np[i] for i in range(F)],
+                          [v_np[F + i] for i in range(int(n_coll))], path, env)
+    two_call = int(prefix) + res.n_checks + env.collision_check_count - c1
+    d_path = float(np.abs(np.asarray(r["path"]) - np.asarray(path)).max())
+    d_smooth = float(np.abs(np.asarray(r["smooth_path"]) - np.asarray(smooth)).max())
+    print(f"  serve_full vs serve_round + backtrack + model_smooth {config} problem {index}: "
+          f"checks {fused} vs {two_call}, path max diff {d_path:.3g}, smoothed path max diff "
+          f"{d_smooth:.3g}", flush=True)
+    return fused == two_call, d_path, d_smooth
+
+
 def main() -> int:
     faulthandler.dump_traceback_later(WATCHDOG_SECONDS, exit=True)
     import torch
@@ -760,6 +1083,7 @@ def main() -> int:
 
     with phase("1 kernels against plain versions"):
         env, model, _, model_s, _ = str2name("kuka7", device=dev)
+        env7 = env  # phases 4 and 5 rebind env; phase 6 times kuka7's lane shapes
         env.init_new_problem(INDEXES[0])
         main_args = kuka7_scene(env, 4096)
         diffs = [check_kernel(f"random scene seed {seed}", random_scene(seed, dev)) for seed in (0, 1)]
@@ -811,6 +1135,33 @@ def main() -> int:
                 f"ur5, kuka14, snake7 with the kernel and the plain version differ: oracle "
                 f"{n_env_diff}, capsules_hit {n_a_diff}")
 
+        # the lane axis at the shapes the batched and serve paths give it:
+        # one search pop of L lanes (2 + k_max states a lane), the flat
+        # projection and the serve sampling of one problem; every lane its
+        # own problem's scene
+        n_lane_b, n_lane_a, lane_a_inputs = [], [], {}
+        k14 = arm_envs["kuka14"][0]
+        for L, B_l in LANE_SHAPES:
+            B_l = B_l or 2 + env._k_max()
+            n_lane_b.append(check_chain_lanes(
+                f"kuka7 problems 2000-{1999 + L}", env,
+                lane_configs(env, L, B_l, seed=L + B_l), stacked_scenes(env, range(2000, 2000 + L))))
+        for L, B_l in LANE_SHAPES:
+            B_l = B_l or 2 + k14._k_max()
+            n_oracle, n_kernel, args = check_env_oracle(
+                "kuka14", k14, lane_configs(k14, L, B_l, seed=L + B_l),
+                stacked_scenes(k14, range(2000, 2000 + L)))
+            n_lane_a += [n_oracle, n_kernel]
+            lane_a_inputs[(L, B_l)] = args
+        env.init_new_problem(INDEXES[0])
+        k14.init_new_problem(2000)
+        if sum(n_lane_b) or sum(n_lane_a):
+            raise AssertionError(f"the lane axis differs from the plain versions: entry B "
+                                 f"{n_lane_b}, kuka14 oracle and entry A {n_lane_a}")
+        near = {config: check_near_contact(config, dev) for config in NEAR_CONFIGS}
+        if sum(near.values()):
+            raise AssertionError(f"near-contact decisions differ: {near}")
+
     def main_path(config, env, model, model_s, indexes):
         """eval_gnn on one config with the launch counts set to 0 just
         before and read just after; the rows are reported."""
@@ -840,7 +1191,7 @@ def main() -> int:
         for name, n in counts.items():
             launches[name] = launches.get(name, 0) + n
 
-    launches: dict = {}  # summed over the main paths of phases 2 and 4
+    launches: dict = {}  # summed over the paths of phases 2, 4, 5, 6 and 7
     with phase("2 eval_gnn kuka7 end to end"):
         main_path("kuka7", env, model, model_s, INDEXES)
 
@@ -866,9 +1217,6 @@ def main() -> int:
             if config in ("maze2easy", "maze3"):
                 print_stages(config, stage_breakdown(config, env, model, model_s, indexes),
                              len(indexes), card)
-                print_stages(f"{config} synchronised oracle",
-                             stage_breakdown(config, env, model, model_s, indexes, oracle=True),
-                             len(indexes), card)
                 time_oracle(env, card)
             if config != "maze2hard":  # its problem 0 alone is a 6 s trace
                 device_busy_share(config, env, model, model_s, indexes[0], card)
@@ -879,13 +1227,93 @@ def main() -> int:
             main_path(config, env, model, model_s, indexes)
             time_entry_a(config, entry_a_inputs[config], card)
             if config in ("ur5", "snake7"):
-                print_stages(config, stage_breakdown(config, env, model, model_s, indexes),
-                             len(indexes), card)
-                print_stages(f"{config} synchronised oracle",
-                             stage_breakdown(config, env, model, model_s, indexes, oracle=True),
-                             len(indexes), card)
+                # snake7 2004 alone takes most of a pass: the stage pass
+                # takes the first two problems
+                staged = indexes[:2]
+                print_stages(config, stage_breakdown(config, env, model, model_s, staged),
+                             len(staged), card)
                 time_oracle(env, card)
             device_busy_share(config, env, model, model_s, indexes[0], card)
+
+    from gnn_motion_planning_tpu_torch.api.eval_gnn import eval_gnn_batched, eval_gnn_serve
+
+    def counted(config, run):
+        """Run one path with the launch counts set to 0 just before and read
+        just after; the counts join the kernels line."""
+
+        for name in capsule.LAUNCHES:
+            capsule.LAUNCHES[name] = 0
+        out = run()
+        counts = dict(capsule.LAUNCHES)
+        for name, n in counts.items():
+            print(f"  {name} launches on the {config} path: {n}", flush=True)
+            launches[name] = launches.get(name, 0) + n
+        return out, counts
+
+    with phase("6 eval_gnn_batched kuka7, kuka14, maze2easy"):
+        for config, lanes, indexes in BATCHED_CELLS:
+            b_env, b_model, _, b_model_s, _ = str2name(config, device=dev)
+            stats, rows_b = [], []
+            t0 = time.perf_counter()
+            (out_b, counts) = counted(f"{config} batched", lambda: eval_gnn_batched(
+                config, SEED, b_env, indexes, b_model, b_model_s, lanes=lanes, stats=stats,
+                rows=rows_b, **protocol(config)))
+            t_batched = time.perf_counter() - t0
+            if config in FUSED_CONFIGS and counts["chain_states_free"] <= 0:
+                raise AssertionError(f"the batched {config} path never launched chain_states_free")
+            if config in PHASE5_PROBLEMS and counts["capsules_hit"] <= 0:
+                raise AssertionError(f"the batched {config} path never launched capsules_hit")
+            report_rows(config, b_env, rows_b[:5], out_b[6][:5])
+            for row, path in zip(rows_b, out_b[6]):
+                check_path(config, b_env, row, path)
+            if out_b[0] == 0:
+                raise AssertionError(f"batched {config}: no problem solved")
+            print_group_stats(config, stats)
+            rows_s = []
+            t0 = time.perf_counter()
+            eval_gnn(config, SEED, b_env, indexes, model=b_model, model_s=b_model_s, rows=rows_s,
+                     **protocol(config))
+            t_scalar = time.perf_counter() - t0
+            agree = sum(
+                all(a[k] == b[k] for k in ("success", "c_explore", "c_smooth")) and
+                abs(a["cost"] - b["cost"]) < 1e-3 for a, b in zip(rows_b, rows_s))
+            print(f"  {config}: batched rows agreeing with the port's scalar rows: {agree} of "
+                  f"{len(rows_b)}", flush=True)
+            print(f"  {config}: {len(indexes)} problems, batched {t_batched:.2f} s "
+                  f"({len(indexes) / t_batched:.2f} problems/s, {lanes} lanes), scalar "
+                  f"{t_scalar:.2f} s ({len(indexes) / t_scalar:.2f} problems/s) ({card})",
+                  flush=True)
+        # the lane shapes' timing: a search pop and the flat projection of
+        # 25 and 8 lanes of kuka7 (entries A and B on its capsules), the
+        # scalar projection and serve sampling shapes, and entry A on
+        # kuka14's lane oracle inputs
+        for L, B_l in LANE_SHAPES:
+            B_l = B_l or 2 + env7._k_max()
+            time_batch(
+                env7, B_l, card, lanes=L, scene=stacked_scenes(env7, range(2000, 2000 + L)),
+                label=f"kuka7 problems 2000-{1999 + L}", reps=5, calls=3)
+        for (L, B_l), args in lane_a_inputs.items():
+            time_entry_a(f"kuka14 L={L}", args, card, reps=5, calls=3)
+
+    with phase("7 eval_gnn_serve kuka7, maze2easy"):
+        for config, indexes in SERVE_CELLS.items():
+            s_env, s_model, _, s_model_s, _ = str2name(config, device=dev)
+            rows = []
+            out_s, counts = counted(f"{config} serve", lambda: eval_gnn_serve(
+                config, SEED, s_env, indexes, s_model, s_model_s, rows=rows, batch=500, k=30))
+            if config in FUSED_CONFIGS and counts["chain_states_free"] <= 0:
+                raise AssertionError(f"the {config} serve path never launched chain_states_free")
+            for row in rows:
+                print(f"  serve {json.dumps(row)}", flush=True)
+            print(f"  serve {config}: solved {out_s[0]} of {len(indexes)}, p50 {out_s[5]:.4f} s, "
+                  f"p95 {out_s[6]:.4f} s ({card})", flush=True)
+            if out_s[0] == 0:
+                raise AssertionError(f"serve {config}: no problem solved")
+            same, d_path, d_smooth = serve_composition(config, s_env, s_model, s_model_s,
+                                                       indexes[0])
+            if not (same and d_path <= 1e-6 and d_smooth <= 1e-5):
+                raise AssertionError(
+                    f"{config}: serve_full differs from serve_round + backtrack + model_smooth")
 
     faulthandler.cancel_dump_traceback_later()
     at_4096 = timings[4096]

@@ -4,7 +4,9 @@
 The unfused order of the JAX package's scalar protocol: per round, RGG
 build -> explorer forward -> greedy search; then backtrack and five
 smoothing iterations. The JAX package states that its fused round-1
-program is bit-identical to this order (eval_gnn.py:161-162).
+program is bit-identical to this order (eval_gnn.py:161-162). The batched
+sweep and the serving paths live in ``api/batched.py`` and
+``api/serve.py`` and are re-exported here, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -14,17 +16,13 @@ from time import time
 import numpy as np
 import torch
 
+from gnn_motion_planning_tpu_torch.api.planner_bundle import get_planner
 from gnn_motion_planning_tpu_torch.config import problem_rng, set_random_seed
 from gnn_motion_planning_tpu_torch.graphs.knn import build_rgg_edges, k_scaled
 from gnn_motion_planning_tpu_torch.models.explorer import explorer_forward
 from gnn_motion_planning_tpu_torch.models.smoother import smoother_forward
-from gnn_motion_planning_tpu_torch.planners.gnn_explore import backtrack, make_explore_round_core
-from gnn_motion_planning_tpu_torch.planners.gnn_smooth import (
-    base_chain_edges,
-    make_projection_core,
-    make_projection_core_flat,
-    pad_to_bucket,
-)
+from gnn_motion_planning_tpu_torch.planners.gnn_explore import backtrack
+from gnn_motion_planning_tpu_torch.planners.gnn_smooth import base_chain_edges, pad_to_bucket
 
 
 def path_cost(path) -> float:
@@ -34,31 +32,6 @@ def path_cost(path) -> float:
         return 0.0
     path = np.asarray(path, np.float64)
     return float(np.sum(np.linalg.norm(path[1:] - path[:-1], axis=-1)))
-
-
-class _Planner:
-    """The env's round core and projection cores, built once per env."""
-
-    def __init__(self, env):
-        kernels = env.kernels()
-        eps = float(env.RRT_EPS)
-        self.round_core = make_explore_round_core(kernels, eps)
-        # flat projection first where the kernels have bounds (the arms); on
-        # overflow the full one redoes the work. Envs without bounds (the
-        # mazes) have no cheap edge check, so both are the full sweep (JAX
-        # api/planner_bundle.py:94-108 with no edge_free_cheap).
-        self.project_full = make_projection_core(kernels, eps)
-        if kernels.bounds is not None:
-            self.project_cheap = make_projection_core_flat(kernels, eps)
-        else:
-            self.project_cheap = self.project_full
-
-
-def get_planner(env) -> _Planner:
-    planner = getattr(env, "_torch_planner", None)
-    if planner is None:
-        planner = env._torch_planner = _Planner(env)
-    return planner
 
 
 def _smooth_iterations(model_s, project, scene, path, args, n_path, iters):
@@ -288,3 +261,9 @@ def eval_gnn(str_, seed, env, indexes, model=None, model_s=None, smooth: bool = 
         n_success, collision, running_time, solution_cost, total_time,
         paths, smooth_paths, collision_explore, total_time_explore,
     )
+
+
+# the batched sweep and the serving paths, re-exported as the JAX package
+# does (eval_gnn.py:494-499)
+from gnn_motion_planning_tpu_torch.api.batched import eval_gnn_batched, explore_batch  # noqa: E402
+from gnn_motion_planning_tpu_torch.api.serve import eval_gnn_serve, explore_serve  # noqa: E402

@@ -57,11 +57,22 @@
 //   block's copy of the chain and the boxes. Above 48 KB of shared memory (hundreds of
 //   boxes) a launch opts in, up to the 227 KB of a block.
 //
-// Built with -fmad=false: every multiply and add rounds on its own, as in
-// the plain PyTorch versions (ops/capsule.py::capsules_hit_reference,
-// envs/kinematics.py::capsules_world), and FK uses the CUDA math library's
-// cosf and sinf, which PyTorch's own cos and sin call on the card. So the
-// kernel sees the same endpoints and decides the same bits.
+// - Lanes: a launch takes L problems ("lanes", the port of jax.vmap over
+//   the Pallas kernel), each with its own scene and B configurations. The
+//   grid is (blocks a lane, L); blockIdx.y is the lane, so a block never
+//   spans two lanes and loads only its lane's boxes. A single problem is
+//   L = 1.
+//
+// Built with -fmad=false: no multiply and add is contracted by the
+// compiler, as in the plain PyTorch versions
+// (ops/capsule.py::capsules_hit_reference, envs/kinematics.py::
+// capsules_world). The narrow phase calls fmaf (one rounding) exactly where
+// XLA's CPU code contracts the JAX package's seg_box_sq_dist (u + t v, the
+// sums of f, f' and the vertex denominator; envs/geometry.py says how they
+// were read), and the plain version forms the same fused multiply-adds
+// (envs/kinematics.py::fma32). FK uses the CUDA math library's cosf and
+// sinf, which PyTorch's own cos and sin call on the card. So the kernel
+// sees the same endpoints and decides the same bits.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -77,25 +88,21 @@ __device__ __forceinline__ float sgn(float w) {
 
 __device__ __forceinline__ float f_at(const float u[3], const float v[3],
                                       const float h[3], float t) {
-  float acc = 0.f;
+  float d[3];
 #pragma unroll
-  for (int i = 0; i < 3; ++i) {
-    float d = fmaxf(fabsf(u[i] + t * v[i]) - h[i], 0.f);
-    acc = acc + d * d;
-  }
-  return acc;
+  for (int i = 0; i < 3; ++i) d[i] = fmaxf(fabsf(fmaf(t, v[i], u[i])) - h[i], 0.f);
+  return fmaf(d[2], d[2], fmaf(d[0], d[0], d[1] * d[1]));
 }
 
 __device__ __forceinline__ float g_at(const float u[3], const float v[3],
                                       const float h[3], float t) {
-  float acc = 0.f;
+  float x[3];
 #pragma unroll
   for (int i = 0; i < 3; ++i) {
-    float w = u[i] + t * v[i];
-    float e = fmaxf(fabsf(w) - h[i], 0.f);
-    acc = acc + 2.f * sgn(w) * e * v[i];
+    const float w = fmaf(t, v[i], u[i]);
+    x[i] = 2.f * sgn(w) * fmaxf(fabsf(w) - h[i], 0.f);
   }
-  return acc;
+  return fmaf(x[2], v[2], fmaf(x[1], v[1], x[0] * v[0]));
 }
 
 __device__ __forceinline__ bool seg_box_contact(const float u[3], const float v[3],
@@ -123,17 +130,17 @@ __device__ __forceinline__ bool seg_box_contact(const float u[3], const float v[
   t_hi = fmaxf(t_hi, t_lo);
 
   float mid = 0.5f * (t_lo + t_hi);
-  float num = 0.f, den = 0.f;
+  float alpha[3], beta[3];
 #pragma unroll
   for (int i = 0; i < 3; ++i) {
-    float wm = u[i] + mid * v[i];
+    float wm = fmaf(mid, v[i], u[i]);
     bool active = fabsf(wm) > h[i];
     float s = sgn(wm);
-    float alpha = active ? s * v[i] : 0.f;
-    float beta = active ? s * u[i] - h[i] : 0.f;
-    num = num + alpha * beta;
-    den = den + alpha * alpha;
+    alpha[i] = active ? s * v[i] : 0.f;
+    beta[i] = active ? s * u[i] - h[i] : 0.f;
   }
+  const float num = (alpha[0] * beta[0] + alpha[1] * beta[1]) + alpha[2] * beta[2];
+  const float den = fmaf(alpha[2], alpha[2], fmaf(alpha[1], alpha[1], alpha[0] * alpha[0]));
   float t_star = fminf(fmaxf(-num / fmaxf(den, CAP_EPS), t_lo), t_hi);
 
   float d2 = f_at(u, v, h, cands[0]);
@@ -220,6 +227,14 @@ capsules_hit_kernel(const float* __restrict__ p0, const float* __restrict__ p1,
                     int B, int C, int O, uint8_t* __restrict__ out) {
   extern __shared__ float boxes[];  // up to O rows of [cx cy cz hx hy hz]
   __shared__ int n_active;
+  // blockIdx.y is the lane: its scene and its B configurations
+  const int64_t lane_id = blockIdx.y;
+  centers += 3 * O * lane_id;
+  halfs += 3 * O * lane_id;
+  mask += O * lane_id;
+  p0 += 3 * (int64_t)C * B * lane_id;
+  p1 += 3 * (int64_t)C * B * lane_id;
+  out += B * lane_id;
   load_active_boxes(centers, halfs, mask, O, boxes, &n_active);
   __syncthreads();
 
@@ -272,6 +287,18 @@ chain_states_free_kernel(const float* __restrict__ qs, int B, int dof,
   // configuration | chain ints (ni)
   extern __shared__ float smem[];
   __shared__ int n_active;
+  // blockIdx.y is the lane: its scene and its B configurations
+  const int64_t lane_id = blockIdx.y;
+  qs += (int64_t)dof * B * lane_id;
+  centers += 3 * O * lane_id;
+  halfs += 3 * O * lane_id;
+  mask += O * lane_id;
+  free_out += B * lane_id;
+  checks_out += B * lane_id;
+  if (p0_out != nullptr) {
+    p0_out += 3 * (int64_t)C * B * lane_id;
+    p1_out += 3 * (int64_t)C * B * lane_id;
+  }
   const int nf = 15 * J + 7 * C + 2 * dof;
   const int ni = 2 * J + C;
   float* boxes = smem;
@@ -405,7 +432,7 @@ static int warps_per_block(int64_t warps_needed) {
 // for `warps` warps a block, opting in above the 48 KB a launch gets
 // without it. Returns the CUDA error, 0 on success.
 template <typename Kernel, typename... Args>
-static int launch(Kernel kernel, int blocks, int warps, size_t smem, void* stream,
+static int launch(Kernel kernel, dim3 blocks, int warps, size_t smem, void* stream,
                   Args... args) {
   if (smem > 48 * 1024) {
     const cudaError_t err =
@@ -416,60 +443,77 @@ static int launch(Kernel kernel, int blocks, int warps, size_t smem, void* strea
   return (int)cudaGetLastError();
 }
 
-template <int G>
-static int capsules_hit_g(const float* p0, const float* p1, const float* r,
-                          const float* centers, const float* halfs, const uint8_t* mask,
-                          int B, int C, int O, uint8_t* out, void* stream) {
-  const int64_t warps_needed = ((int64_t)B * G + 31) / 32;
-  const int warps = warps_per_block(warps_needed);
-  const int blocks = (int)((warps_needed + warps - 1) / warps);
-  const size_t smem = sizeof(float) * 6 * (size_t)O;
-  return launch(capsules_hit_kernel<G>, blocks, warps, smem, stream, p0, p1, r, centers,
-                halfs, mask, B, C, O, out);
+// The grid of a launch over L lanes of B configurations, G lanes a
+// configuration: (blocks a lane, L), so that a block never spans two lanes,
+// and the warps a block, sized from the warps of all lanes together.
+struct Grid {
+  dim3 blocks;
+  int warps;
+};
+
+static Grid lane_grid(int L, int B, int G) {
+  const int64_t warps_lane = ((int64_t)B * G + 31) / 32;
+  const int warps = warps_per_block(warps_lane * L);
+  return {dim3((unsigned)((warps_lane + warps - 1) / warps), (unsigned)L), warps};
 }
 
 template <int G>
-static int chain_states_free_g(const float* qs, int B, int dof, const float* chain_f,
+static int capsules_hit_g(const float* p0, const float* p1, const float* r,
+                          const float* centers, const float* halfs, const uint8_t* mask,
+                          int L, int B, int C, int O, uint8_t* out, void* stream) {
+  const Grid grid = lane_grid(L, B, G);
+  const size_t smem = sizeof(float) * 6 * (size_t)O;
+  return launch(capsules_hit_kernel<G>, grid.blocks, grid.warps, smem, stream, p0, p1, r,
+                centers, halfs, mask, B, C, O, out);
+}
+
+template <int G>
+static int chain_states_free_g(const float* qs, int L, int B, int dof, const float* chain_f,
                                const int32_t* chain_i, int J, int C, const float* centers,
                                const float* halfs, const uint8_t* mask, int O,
                                uint8_t* free_out, int32_t* checks_out, float* p0_out,
                                float* p1_out, void* stream) {
-  const int64_t warps_needed = ((int64_t)B * G + 31) / 32;
-  const int warps = warps_per_block(warps_needed);
-  const int blocks = (int)((warps_needed + warps - 1) / warps);
+  const Grid grid = lane_grid(L, B, G);
   const size_t smem =
       sizeof(float) * (6 * (size_t)O + 15 * J + 7 * C + 2 * dof +
-                       (size_t)(32 * warps / G) * slice_floats(J, C)) +
+                       (size_t)(32 * grid.warps / G) * slice_floats(J, C)) +
       sizeof(int32_t) * (2 * J + C);
-  return launch(chain_states_free_kernel<G>, blocks, warps, smem, stream, qs, B, dof,
-                chain_f, chain_i, J, C, centers, halfs, mask, O, free_out, checks_out,
+  return launch(chain_states_free_kernel<G>, grid.blocks, grid.warps, smem, stream, qs, B,
+                dof, chain_f, chain_i, J, C, centers, halfs, mask, O, free_out, checks_out,
                 p0_out, p1_out);
 }
 
+// the grid's y extent bounds the lanes of one launch
+#define MAX_LANES 65535
+
 extern "C" int capsules_hit_launch(const float* p0, const float* p1, const float* r,
                                    const float* centers, const float* halfs,
-                                   const uint8_t* mask, int B, int C, int O,
+                                   const uint8_t* mask, int L, int B, int C, int O,
                                    uint8_t* out, int lanes, void* stream) {
+  if (L > MAX_LANES) return (int)cudaErrorInvalidValue;
   switch (lanes) {
-    case 16: return capsules_hit_g<16>(p0, p1, r, centers, halfs, mask, B, C, O, out, stream);
-    case 32: return capsules_hit_g<32>(p0, p1, r, centers, halfs, mask, B, C, O, out, stream);
+    case 16:
+      return capsules_hit_g<16>(p0, p1, r, centers, halfs, mask, L, B, C, O, out, stream);
+    case 32:
+      return capsules_hit_g<32>(p0, p1, r, centers, halfs, mask, L, B, C, O, out, stream);
   }
   return (int)cudaErrorInvalidValue;
 }
 
-extern "C" int chain_states_free_launch(const float* qs, int B, int dof,
+extern "C" int chain_states_free_launch(const float* qs, int L, int B, int dof,
                                         const float* chain_f, const int32_t* chain_i,
                                         int J, int C, const float* centers,
                                         const float* halfs, const uint8_t* mask, int O,
                                         uint8_t* free_out, int32_t* checks_out,
                                         float* p0_out, float* p1_out, int lanes,
                                         void* stream) {
+  if (L > MAX_LANES) return (int)cudaErrorInvalidValue;
   switch (lanes) {
     case 16:
-      return chain_states_free_g<16>(qs, B, dof, chain_f, chain_i, J, C, centers, halfs, mask,
+      return chain_states_free_g<16>(qs, L, B, dof, chain_f, chain_i, J, C, centers, halfs, mask,
                                      O, free_out, checks_out, p0_out, p1_out, stream);
     case 32:
-      return chain_states_free_g<32>(qs, B, dof, chain_f, chain_i, J, C, centers, halfs, mask,
+      return chain_states_free_g<32>(qs, L, B, dof, chain_f, chain_i, J, C, centers, halfs, mask,
                                      O, free_out, checks_out, p0_out, p1_out, stream);
   }
   return (int)cudaErrorInvalidValue;

@@ -4,10 +4,17 @@ gnn_motion_planning_tpu/envs/base.py).
 The JAX package writes each kernel for one configuration and vmaps it; here
 every kernel takes a batch along its first axis, and the collision-check
 count is returned explicitly, as there.
+
+Lanes. Many problems are checked at once (the port of ``jax.vmap`` over
+the JAX oracles, ``api/batched.py``): :func:`stack_scenes` stacks the
+scenes of L problems along a leading lane axis, and every oracle then
+takes inputs with the same leading axis, (L, B, d), and returns (L, B). A
+single scene with (B, d) inputs is the same oracle at L = 1.
 """
 
 from __future__ import annotations
 
+import functools
 from typing import Any, Callable, NamedTuple
 
 import numpy as np
@@ -21,11 +28,55 @@ BIG = 1 << 30
 K_CHEAP = 128
 
 
+def stack_scenes(scenes):
+    """The device scenes of L problems as one scene with a leading lane
+    axis. A scene is a tensor or a tuple of tensors (``BoxScene``); the
+    first axis of each tensor is padded with zeros (False) to the longest
+    in the group, so a padded box is masked off (JAX ``jax.tree.map(
+    jnp.stack, *scenes)``, whose scenes have one size)."""
+
+    def stack(ts):
+        n = max(t.shape[0] for t in ts)
+        return torch.stack([
+            torch.cat([t, t.new_zeros((n - t.shape[0],) + tuple(t.shape[1:]))])
+            if t.shape[0] < n else t
+            for t in ts
+        ])
+
+    first = scenes[0]
+    if isinstance(first, torch.Tensor):
+        return stack(scenes)
+    return type(first)(*(stack(ts) for ts in zip(*scenes)))
+
+
+def one_lane(scene):
+    """One problem's scene as a stacked scene of one lane."""
+
+    if isinstance(scene, torch.Tensor):
+        return scene[None]
+    return type(scene)(*(t[None] for t in scene))
+
+
+def lane_oracle(fn):
+    """Let an oracle written for lanes, ``fn(scenes, *xs (L, B, d))``, also
+    take one problem's scene with (B, d) inputs, as the same call at L = 1."""
+
+    @functools.wraps(fn)
+    def call(scene, *xs):
+        if xs[0].dim() == 3:
+            return fn(scene, *xs)
+        return tuple(out[0] for out in fn(one_lane(scene), *(x[None] for x in xs)))
+
+    return call
+
+
 class EnvKernels(NamedTuple):
     """Batched device kernels for one environment family.
 
     batch_state_free(scene, qs (B, d)) -> (free (B,) bool, n_checks (B,) int)
     edge_free(scene, qa (E, d), qb (E, d)) -> (free (E,), n_checks (E,))
+        Both also take a stacked scene (:func:`stack_scenes`) with inputs
+        and outputs of a leading lane axis.
     distance(a (..., d), b (..., d)) -> (...,) the env's metric
     interpolate(a, b, ratio (...,)) -> (..., d) the env's steering rule
     edge_free_cheap(scene, qa, qb) -> (free, n_checks, overflow), or None
@@ -52,23 +103,24 @@ def make_fixed_step_edge_free(
     ``batch_state_free`` call."""
 
     def edge_free(scene, qa, qb):
-        E, d = qa.shape
+        lead, d = qa.shape[:-1], qa.shape[-1]  # (E,) or (L, E)
         valid = ((qa >= lower) & (qa <= upper)).all(-1) & (
             (qb >= lower) & (qb <= upper)
         ).all(-1)
         disp = qb - qa
-        K = (distance(qa, qb) / rrt_eps).to(torch.int32)  # (E,)
+        K = (distance(qa, qb) / rrt_eps).to(torch.int32)  # lead
         ks = torch.arange(k_pts, dtype=qa.dtype, device=qa.device)
-        active = ks[None, :] < K.to(qa.dtype)[:, None]  # (E, k_pts)
-        coeff = ks[None, :] / torch.clamp_min(K, 1).to(qa.dtype)[:, None]
-        cs = qa[:, None, :] + coeff[:, :, None] * disp[:, None, :]
-        states = torch.cat([qa[:, None], qb[:, None], cs], dim=1)
-        free_all, _ = batch_state_free(scene, states.reshape(-1, d))
-        free_all = free_all.reshape(E, 2 + k_pts)
-        fa, fb, in_free = free_all[:, 0], free_all[:, 1], free_all[:, 2:]
+        active = ks < K.to(qa.dtype)[..., None]  # lead + (k_pts,)
+        coeff = ks / torch.clamp_min(K, 1).to(qa.dtype)[..., None]
+        cs = qa[..., None, :] + coeff[..., :, None] * disp[..., None, :]
+        states = torch.cat([qa[..., None, :], qb[..., None, :], cs], dim=-2)
+        # every state of every edge (of every lane) in one oracle call
+        free_all, _ = batch_state_free(scene, states.reshape(lead[:-1] + (-1, d)))
+        free_all = free_all.reshape(lead + (2 + k_pts,))
+        fa, fb, in_free = free_all[..., 0], free_all[..., 1], free_all[..., 2:]
         order = torch.arange(k_pts, dtype=torch.int32, device=qa.device)
-        first_fail = torch.where(active & ~in_free, order, BIG).amin(dim=1)
-        interior_cnt = (active & (order <= first_fail[:, None])).sum(dim=1)
+        first_fail = torch.where(active & ~in_free, order, BIG).amin(dim=-1)
+        interior_cnt = (active & (order <= first_fail[..., None])).sum(dim=-1)
         interior_free = first_fail == BIG
         free = valid & fa & fb & interior_free
         zero = torch.zeros_like(interior_cnt)

@@ -91,6 +91,40 @@ def sum_last(x: torch.Tensor) -> torch.Tensor:
     return acc
 
 
+def fma32(a, b, c) -> torch.Tensor:
+    """``a * b + c`` rounded once to float32, the value of a fused
+    multiply-add (CUDA's ``fmaf``, and what XLA's CPU code forms where it
+    contracts a product into a sum), on every device.
+
+    The product of two float32 is exact in float64; the sum is split into
+    its float64 rounding and the exact remainder (Knuth's two-sum), and the
+    float64 result is rounded to odd before the final rounding to float32,
+    so that the double rounding is exact (53 bits >= 24 + 2). ``a`` may be a Python number.
+    """
+
+    a = a.double() if isinstance(a, torch.Tensor) else float(a)
+    p = a * b.double()
+    c = c.double()
+    s = c + p
+    bb = s - c
+    err = (c - (s - bb)).add_(p - bb)
+    # round to odd: truncate toward zero, then set the last bit if inexact
+    inexact = err != 0
+    toward_zero = inexact & ((err > 0) != (s > 0))
+    bits = (s.view(torch.int64) - toward_zero.to(torch.int64)) | inexact.to(torch.int64)
+    return bits.view(torch.float64).float()
+
+
+def dot3_fused(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+    """Sum over the last axis (3 entries) of ``x * y`` as XLA's CPU code
+    forms a product-sum reduction it does not vectorise across rows:
+    ``fma(x2, y2, fma(x1, y1, x0 * y0))``."""
+
+    acc = x[..., 0] * y[..., 0]
+    acc = fma32(x[..., 1], y[..., 1], acc)
+    return fma32(x[..., 2], y[..., 2], acc)
+
+
 def norm_last(x: torch.Tensor) -> torch.Tensor:
     """Euclidean norm over the last axis, ``sqrt(sum(x ** 2))``, rounded as
     XLA's CPU code rounds it, so that lengths, and the step counts
@@ -99,8 +133,9 @@ def norm_last(x: torch.Tensor) -> torch.Tensor:
     XLA sums the squares in index order, each step a fused multiply-add,
     except where it vectorises: rows of 5 to 8 entries it takes four at a
     time in vector registers, each step a multiply and an add, and only the
-    rows left over past a multiple of four get fused multiply-adds (rows
-    are the leading axes, flattened). Fused steps are formed here in
+    rows left over past a multiple of four get fused multiply-adds. Rows
+    run along the second-to-last axis; an axis before it (lanes of
+    problems) repeats the rule, so each lane rounds as its own call does. Fused steps are formed here in
     float64 and rounded once (the square of a float32 is exact there); the
     sqrt too, since torch's float32 sqrt on the CPU is not correctly
     rounded. The CPU and the card give the same bits.
@@ -115,9 +150,9 @@ def norm_last(x: torch.Tensor) -> torch.Tensor:
         plain = x[..., 0] * x[..., 0]
         for i in range(1, d):
             plain = plain + x[..., i] * x[..., i]
-        rows = plain.numel()
+        rows = x.shape[-2]
         vector = torch.arange(rows, device=x.device) < rows // 4 * 4
-        acc = torch.where(vector.reshape(plain.shape), plain, acc)
+        acc = torch.where(vector, plain, acc)
     return torch.sqrt(acc.double()).float()
 
 
@@ -181,3 +216,20 @@ def capsules_world(chain: ChainParams, q: torch.Tensor, base_rot=None, base_tran
     p0 = matvec3(R, chain.cap_p0.expand_as(t)) + t
     p1 = matvec3(R, chain.cap_p1.expand_as(t)) + t
     return p0, p1, chain.cap_r
+
+
+def lane_capsules(chain: ChainParams, q: torch.Tensor, base_rot=None, base_trans=None):
+    """Capsule endpoints of configurations q (L, B, dof) in lanes: (L, B, C,
+    3) twice, contiguous, from one :func:`capsules_world` over all L B
+    configurations (``base_rot`` and ``base_trans`` per configuration, with
+    the same leading axes, or shared)."""
+
+    L, B, dof = q.shape
+
+    def flat(t):
+        per_config = t is not None and t.dim() >= 3 and tuple(t.shape[:2]) == (L, B)
+        return t.reshape((L * B,) + tuple(t.shape[2:])) if per_config else t
+
+    p0, p1, _ = capsules_world(chain, q.reshape(L * B, dof), flat(base_rot), flat(base_trans))
+    C = p0.shape[1]
+    return p0.reshape(L, B, C, 3).contiguous(), p1.reshape(L, B, C, 3).contiguous()

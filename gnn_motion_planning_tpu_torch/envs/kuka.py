@@ -29,6 +29,7 @@ from gnn_motion_planning_tpu_torch import resolve_device
 from gnn_motion_planning_tpu_torch.envs.base import (
     EnvKernels,
     K_CHEAP,
+    lane_oracle,
     make_fixed_step_edge_free,
     rejection_sample,
 )
@@ -57,7 +58,8 @@ def _apply_calibration(chain: ChainParams, urdf_relpath: str) -> ChainParams:
 
 
 class BoxScene(NamedTuple):
-    """Padded axis-aligned obstacle set for one problem."""
+    """Padded axis-aligned obstacle set for one problem, or for L problems
+    with a leading lane axis (``envs/base.py::stack_scenes``)."""
 
     centers: torch.Tensor  # (MAX_OBSTACLES, 3)
     halfs: torch.Tensor  # (MAX_OBSTACLES, 3)
@@ -118,6 +120,7 @@ def make_chain_kernels(chain: ChainParams, rrt_eps: float, k_max: int) -> EnvKer
 
     packed = pack_chain(chain)
 
+    @lane_oracle
     def batch_state_free(scene: BoxScene, qs: torch.Tensor):
         return chain_states_free(qs.contiguous(), packed, scene)
 

@@ -17,9 +17,9 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from gnn_motion_planning_tpu_torch.envs.base import EnvKernels
-from gnn_motion_planning_tpu_torch.envs.geometry import contact_pairs, pair_contacts
-from gnn_motion_planning_tpu_torch.envs.kinematics import capsules_world, chain_from_model
+from gnn_motion_planning_tpu_torch.envs.base import EnvKernels, lane_oracle
+from gnn_motion_planning_tpu_torch.envs.geometry import contact_pairs, pair_contacts, vector_tail
+from gnn_motion_planning_tpu_torch.envs.kinematics import chain_from_model, lane_capsules
 from gnn_motion_planning_tpu_torch.envs.kuka import KukaEnv, _apply_calibration, arm_kernels
 from gnn_motion_planning_tpu_torch.envs.urdf import parse_urdf
 from gnn_motion_planning_tpu_torch.ops.capsule import capsules_hit
@@ -38,19 +38,22 @@ def make_dual_kernels(chain, base1, base2, rrt_eps: float, k_max: int) -> EnvKer
     lower = torch.cat([chain.lower, chain.lower])
     upper = torch.cat([chain.upper, chain.upper])
     r = torch.cat([chain.cap_r, chain.cap_r])
-    # every capsule of the first arm against every capsule of the second
+    # every capsule of the first arm against every capsule of the second;
+    # XLA takes each arm's squared lengths in its own loop of C capsules
     cross = np.zeros((2 * C, 2 * C), bool)
     cross[:C, C:] = True
-    pair_i, pair_j, pair_r2 = contact_pairs(cross, r.cpu().numpy(), r.device)
+    pairs = contact_pairs(cross, r.cpu().numpy(), r.device,
+                          fused_len=np.tile(vector_tail(C), 2))
 
+    @lane_oracle
     def batch_state_free(scene, qs):
-        valid = ((qs >= lower) & (qs <= upper)).all(dim=1)
-        p0a, p1a, _ = capsules_world(chain, qs[:, :dof], base_trans=base1)
-        p0b, p1b, _ = capsules_world(chain, qs[:, dof:], base_trans=base2)
-        p0 = torch.cat([p0a, p0b], dim=1)
-        p1 = torch.cat([p1a, p1b], dim=1)
+        valid = ((qs >= lower) & (qs <= upper)).all(dim=-1)
+        p0a, p1a = lane_capsules(chain, qs[..., :dof].contiguous(), base_trans=base1)
+        p0b, p1b = lane_capsules(chain, qs[..., dof:].contiguous(), base_trans=base2)
+        p0 = torch.cat([p0a, p0b], dim=2)
+        p1 = torch.cat([p1a, p1b], dim=2)
         box = capsules_hit(p0, p1, r, scene.centers, scene.halfs, scene.mask)
-        arms = pair_contacts(p0, p1, pair_i, pair_j, pair_r2)
+        arms = pair_contacts(p0, p1, pairs)
         return valid & ~box & ~arms, valid.to(torch.int32)
 
     return arm_kernels(batch_state_free, lower, upper, rrt_eps, k_max)

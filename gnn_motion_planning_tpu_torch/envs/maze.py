@@ -21,9 +21,9 @@ read.
 
 Float32 positions are rounded as the JAX package's compiled functions
 round them: XLA contracts ``c + a * b`` into one fused multiply-add, so
-:func:`_fma` forms it in float64 (the product of two float32 is exact
-there) and rounds once. Without it a midpoint that falls on a cell boundary
-lands in the other cell now and then (cell-centre edges, tests). cos, sin
+``kinematics.fma32`` forms it with one rounding, exactly. Without it a
+midpoint that falls on a cell boundary lands in the other cell now and
+then (cell-centre edges, tests). cos, sin
 and sqrt go through float64 too: torch's float32 versions on the CPU are
 not correctly rounded, the card's are, and both must give the same cells.
 """
@@ -39,7 +39,7 @@ import torch
 from gnn_motion_planning_tpu_torch import resolve_device
 from gnn_motion_planning_tpu_torch.envs.base import BIG, EnvKernels
 from gnn_motion_planning_tpu_torch.envs.env_config import LIMITS, RRT_EPS, STICK_LENGTH
-from gnn_motion_planning_tpu_torch.envs.kinematics import sum_last
+from gnn_motion_planning_tpu_torch.envs.kinematics import fma32, sum_last
 from gnn_motion_planning_tpu_torch.utils.assets import asset_path
 
 # ---------------------------------------------------------------------------
@@ -130,14 +130,6 @@ def _interior_steps(dtype: torch.dtype, device: torch.device) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 
-def _fma(c: torch.Tensor, a, b: torch.Tensor) -> torch.Tensor:
-    """``c + a * b`` with one rounding to float32, the value of a fused
-    multiply-add (up to a double rounding once in about 2**29)."""
-
-    a = a.double() if isinstance(a, torch.Tensor) else float(np.float32(a))
-    return (c.double() + a * b.double()).to(c.dtype)
-
-
 def _sqrt(x: torch.Tensor) -> torch.Tensor:
     """Correctly rounded float32 sqrt on every device."""
 
@@ -154,16 +146,21 @@ def grid_coord(xy: torch.Tensor, width: int) -> torch.Tensor:
 
 def occ_at(occ: torch.Tensor, xy: torch.Tensor) -> torch.Tensor:
     """Occupancy of the cell holding each point: a gather on the (W, W)
-    grid. A negative coordinate reads as free, as the JAX package's bitmap
-    lookup does (``_occ_at_flat``, maze.py:205); callers reject invalid
-    states separately."""
+    grid, or, for a stacked (L, W, W) scene of L problems, on the grid of
+    the point's lane, the leading axis of ``xy`` (L, ..., 2). A negative
+    coordinate reads as free, as the JAX package's bitmap lookup does
+    (``_occ_at_flat``, maze.py:205); callers reject invalid states
+    separately."""
 
     width = occ.shape[-1]
     c = grid_coord(xy, width)
     c0, c1 = c[..., 0], c[..., 1]
     in_range = (c0 >= 0) & (c1 >= 0)
-    flat = torch.clamp_min(c0, 0) * width + torch.clamp_min(c1, 0)
-    return in_range & occ.reshape(-1)[flat.long()]
+    flat = (torch.clamp_min(c0, 0) * width + torch.clamp_min(c1, 0)).long()
+    if occ.dim() == 3:
+        lane = torch.arange(occ.shape[0], device=xy.device)
+        flat = flat + (lane * (width * width)).reshape((-1,) + (1,) * (flat.dim() - 1))
+    return in_range & occ.reshape(-1)[flat]
 
 
 def valid_state(q: torch.Tensor) -> torch.Tensor:
@@ -183,16 +180,16 @@ def point_free_2d(occ: torch.Tensor, xy: torch.Tensor):
 
 
 def _segment_checks(occ: torch.Tensor, a: torch.Tensor, b: torch.Tensor, depth: int):
-    """Bisection of the (B, 2) segments [a, b] with the reference's
+    """Bisection of the (..., 2) segments [a, b] with the reference's
     preorder stop (maze_env.py:301-314), both endpoints known free:
-    (no_collision (B,), midpoint checks (B,))."""
+    (no_collision (...), midpoint checks (...))."""
 
     t0, t1, tm, parent, is_root, order = _tree_tables(depth, a.dtype, a.device)
-    a3 = a[:, None, :]
-    d3 = (b - a)[:, None, :]
-    lefts = _fma(a3, t0[:, None], d3)  # (B, n, 2)
-    rights = _fma(a3, t1[:, None], d3)
-    mids = _fma(a3, tm[:, None], d3)
+    a3 = a[..., None, :]
+    d3 = (b - a)[..., None, :]
+    lefts = fma32(t0[:, None], d3, a3)  # (B, n, 2)
+    rights = fma32(t1[:, None], d3, a3)
+    mids = fma32(tm[:, None], d3, a3)
 
     width = occ.shape[-1]
     coord_spread = sum_last((grid_coord(lefts, width) - grid_coord(rights, width)).abs()) > 1
@@ -203,12 +200,12 @@ def _segment_checks(occ: torch.Tensor, a: torch.Tensor, b: torch.Tensor, depth: 
     # children in preorder, so depth - 1 passes reach the fixed point
     visited = split
     for _ in range(depth - 1):
-        visited = split & (is_root | visited[:, parent])
+        visited = split & (is_root | visited[..., parent])
 
     colliding = visited & occ_at(occ, mids)  # mids lie between valid endpoints
-    first_fail = torch.where(colliding, order, BIG).amin(dim=1)
-    counted = visited & (order <= first_fail[:, None])
-    return first_fail == BIG, counted.sum(dim=1, dtype=torch.int32)
+    first_fail = torch.where(colliding, order, BIG).amin(dim=-1)
+    counted = visited & (order <= first_fail[..., None])
+    return first_fail == BIG, counted.sum(dim=-1, dtype=torch.int32)
 
 
 def _staged_count(valid, a_free, a_cnt, b_free, b_cnt, rest_cnt):
@@ -241,8 +238,8 @@ def stick_endpoints(q: torch.Tensor):
     theta = (q[..., 2] * (np.float32(np.pi) / np.float32(LIMITS[2]))).double()
     orient = torch.stack([torch.cos(theta), torch.sin(theta)], dim=-1).to(q.dtype)
     center = q[..., :2]
-    half = 0.5 * STICK_LENGTH
-    return _fma(center, -half, orient), _fma(center, half, orient)
+    half = np.float32(0.5 * STICK_LENGTH)
+    return fma32(-half, orient, center), fma32(half, orient, center)
 
 
 def stick_free_3d(occ: torch.Tensor, q: torch.Tensor):
@@ -274,20 +271,19 @@ def maze_distance(a: torch.Tensor, b: torch.Tensor, dim: int) -> torch.Tensor:
     if dim >= 3:
         # XLA fuses the third square into the sum
         t = torch.minimum(diff[..., 2], (diff[..., 2] - 2 * LIMITS[2]).abs())
-        sq = _fma(sq, t, t)
+        sq = fma32(t, t, sq)
     return _sqrt(sq)
 
 
 def edge_free_3d(occ: torch.Tensor, q0: torch.Tensor, q1: torch.Tensor):
-    """(free, n_checks) of (E, 3) stick-maze edges (maze_env.py:316-347).
+    """(free, n_checks) of (..., E, 3) stick-maze edges (maze_env.py:316-347).
 
     Endpoint stick checks, then K = int(d / 0.015) interior sticks, each of
     which runs a full 2-D edge check between its endpoints (the two
     endpoint point checks included), stopping at the first collision: one
-    batched (E, 191, 127) pass.
+    batched (..., E, 191, 127) pass.
     """
 
-    E = q0.shape[0]
     valid = valid_state(q0) & valid_state(q1)
     s0_free, s0_cnt = stick_free_3d(occ, q0)
     s1_free, s1_cnt = stick_free_3d(occ, q1)
@@ -295,17 +291,16 @@ def edge_free_3d(occ: torch.Tensor, q0: torch.Tensor, q1: torch.Tensor):
     disp = wrap_theta_disp(q1 - q0)
     K = (maze_distance(q0, q1, 3) / 0.015).to(torch.int32)
     ks = _interior_steps(q0.dtype, q0.device)  # 1 .. _K_MAX_3D - 1
-    active = ks[None, :] < K.to(q0.dtype)[:, None]
-    frac = ks[None, :] / torch.clamp_min(K, 1).to(q0.dtype)[:, None]
-    cs = _fma(q0[:, None, :], frac[:, :, None], disp[:, None, :])  # (E, k, 3)
+    active = ks < K.to(q0.dtype)[..., None]
+    frac = ks / torch.clamp_min(K, 1).to(q0.dtype)[..., None]
+    cs = fma32(frac[..., :, None], disp[..., None, :], q0[..., None, :])  # (..., E, k, 3)
     ca, cb = stick_endpoints(cs)
-    in_free, in_cnt = edge_free_2d(occ, ca.reshape(-1, 2), cb.reshape(-1, 2))
-    in_free, in_cnt = in_free.reshape(E, -1), in_cnt.reshape(E, -1)
+    in_free, in_cnt = edge_free_2d(occ, ca, cb)  # (..., E, k)
 
     order = torch.arange(ks.shape[0], dtype=torch.int32, device=q0.device)
-    first_fail = torch.where(active & ~in_free, order, BIG).amin(dim=1)
-    counted = active & (order <= first_fail[:, None])
-    interior_cnt = torch.where(counted, in_cnt, 0).sum(dim=1)
+    first_fail = torch.where(active & ~in_free, order, BIG).amin(dim=-1)
+    counted = active & (order <= first_fail[..., None])
+    interior_cnt = torch.where(counted, in_cnt, 0).sum(dim=-1)
     free = valid & s0_free & s1_free & (first_fail == BIG)
     return free, _staged_count(valid, s0_free, s0_cnt, s1_free, s1_cnt, interior_cnt)
 
@@ -317,7 +312,7 @@ def maze_interpolate(a: torch.Tensor, b: torch.Tensor, ratio: torch.Tensor, dim:
     diff = b - a
     if dim >= 3:
         diff = wrap_theta_disp(diff)
-    new = _fma(a, diff, ratio[..., None])
+    new = fma32(diff, ratio[..., None], a)
     if dim >= 3:
         new = wrap_theta_disp(new)
     return new
@@ -325,7 +320,8 @@ def maze_interpolate(a: torch.Tensor, b: torch.Tensor, ratio: torch.Tensor, dim:
 
 def maze_kernels(dim: int) -> EnvKernels:
     """EnvKernels for a maze dimension; the scene is the (W, W) bool grid
-    on the device. No bounds: the projection takes the full sweep."""
+    on the device, or the (L, W, W) grids of L problems with inputs of a
+    leading lane axis. No bounds: the projection takes the full sweep."""
 
     if dim == 2:
         state_free, edge_free = point_free_2d, edge_free_2d

@@ -23,9 +23,9 @@ from typing import Optional
 import numpy as np
 import torch
 
-from gnn_motion_planning_tpu_torch.envs.base import EnvKernels
+from gnn_motion_planning_tpu_torch.envs.base import EnvKernels, lane_oracle
 from gnn_motion_planning_tpu_torch.envs.geometry import contact_pairs, pair_contacts
-from gnn_motion_planning_tpu_torch.envs.kinematics import capsules_world, chain_from_model
+from gnn_motion_planning_tpu_torch.envs.kinematics import chain_from_model, lane_capsules
 from gnn_motion_planning_tpu_torch.envs.kuka import BoxScene, KukaEnv, arm_kernels
 from gnn_motion_planning_tpu_torch.envs.ur5 import pair_mask_from_hops
 from gnn_motion_planning_tpu_torch.envs.urdf import parse_urdf
@@ -55,33 +55,39 @@ def make_snake_scene(occ_map: np.ndarray, device) -> BoxScene:
 
 
 def snake_capsules(chain, qs: torch.Tensor):
-    """Capsule endpoints and radii of configurations qs (B, 7) under the
-    reference's mapping: base (q0, q1, HEIGHT), yaw q3, joints q2..q5."""
+    """Capsule endpoints of configurations qs (..., B, 7) under the
+    reference's mapping: base (q0, q1, HEIGHT), yaw q3, joints q2..q5:
+    (L, B, C, 3) twice for lanes (L, B, 7), (B, C, 3) for (B, 7), and the
+    radii (C,)."""
 
-    c, s = torch.cos(qs[:, 3]), torch.sin(qs[:, 3])
+    lanes = qs.dim() == 3
+    q = qs if lanes else qs[None]
+    c, s = torch.cos(q[..., 3]), torch.sin(q[..., 3])
     zero, one = torch.zeros_like(c), torch.ones_like(c)
     base_rot = torch.stack([
         torch.stack([c, -s, zero], dim=-1),
         torch.stack([s, c, zero], dim=-1),
         torch.stack([zero, zero, one], dim=-1),
     ], dim=-2)
-    base_trans = torch.stack([qs[:, 0], qs[:, 1], torch.full_like(c, HEIGHT)], dim=-1)
-    return capsules_world(chain, qs[:, 2:6], base_rot=base_rot, base_trans=base_trans)
+    base_trans = torch.stack([q[..., 0], q[..., 1], torch.full_like(c, HEIGHT)], dim=-1)
+    p0, p1 = lane_capsules(chain, q[..., 2:6].contiguous(), base_rot=base_rot,
+                           base_trans=base_trans)
+    return (p0, p1, chain.cap_r) if lanes else (p0[0], p1[0], chain.cap_r)
 
 
 def make_snake_kernels(chain, pair_mask: np.ndarray, lower, upper, rrt_eps: float,
                        k_max: int) -> EnvKernels:
     """JAX envs/snake.py:187-217, batched: limits, cells and self pairs."""
 
-    pair_i, pair_j, pair_r2 = contact_pairs(pair_mask, chain.cap_r.cpu().numpy(),
-                                            chain.cap_r.device)
+    r = chain.cap_r
+    pairs = contact_pairs(pair_mask, r.cpu().numpy(), r.device)
 
+    @lane_oracle
     def batch_state_free(scene, qs):
-        valid = ((qs >= lower) & (qs <= upper)).all(dim=1)
-        p0, p1, r = snake_capsules(chain, qs)
-        p0, p1 = p0.contiguous(), p1.contiguous()
+        valid = ((qs >= lower) & (qs <= upper)).all(dim=-1)
+        p0, p1, _ = snake_capsules(chain, qs)
         box = capsules_hit(p0, p1, r, scene.centers, scene.halfs, scene.mask)
-        self_hit = pair_contacts(p0, p1, pair_i, pair_j, pair_r2)
+        self_hit = pair_contacts(p0, p1, pairs)
         return valid & ~box & ~self_hit, valid.to(torch.int32)
 
     return arm_kernels(batch_state_free, lower, upper, rrt_eps, k_max)

@@ -25,9 +25,9 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from gnn_motion_planning_tpu_torch.envs.base import EnvKernels
+from gnn_motion_planning_tpu_torch.envs.base import EnvKernels, lane_oracle
 from gnn_motion_planning_tpu_torch.envs.geometry import contact_pairs, pair_contacts
-from gnn_motion_planning_tpu_torch.envs.kinematics import capsules_world, chain_from_model
+from gnn_motion_planning_tpu_torch.envs.kinematics import chain_from_model, lane_capsules
 from gnn_motion_planning_tpu_torch.envs.kuka import KukaEnv, arm_kernels
 from gnn_motion_planning_tpu_torch.envs.urdf import parse_urdf
 from gnn_motion_planning_tpu_torch.ops.capsule import capsules_hit
@@ -41,13 +41,17 @@ class UR5Geom(NamedTuple):
     """Static UR5 collision metadata beyond the kinematic chain."""
 
     pair_mask: torch.Tensor  # (C, C) bool: self-collision pairs to test
-    pair_i: torch.Tensor  # (P,) long: the pairs of pair_mask, row-major
-    pair_j: torch.Tensor  # (P,) long
-    pair_r2: torch.Tensor  # (P,) (r_self[i] + r_self[j]) ** 2
+    pairs: tuple  # geometry.contact_pairs of pair_mask with r_self
     plane_mask: torch.Tensor  # (C,) bool: capsules tested against z = 0
     r_box: torch.Tensor  # (C,) radii of each family
     r_self: torch.Tensor
     r_plane: torch.Tensor
+
+    @property
+    def pair_i(self) -> torch.Tensor:
+        """(P,) long: the first capsule of each self pair, row-major."""
+
+        return self.pairs[0]
 
 
 def link_graph_distance(model) -> np.ndarray:
@@ -93,30 +97,30 @@ def build_ur5_geom(model, chain, calibration=None) -> UR5Geom:
             if off.shape[0] == n_caps:
                 arr -= off
         r_box, r_self, r_plane = (np.maximum(a, 1e-3) for a in (r_box, r_self, r_plane))
-    pair_i, pair_j, pair_r2 = contact_pairs(pair_mask, r_self, dev)
     t = lambda a: torch.as_tensor(a, device=dev)  # noqa: E731
     return UR5Geom(
-        pair_mask=t(pair_mask), pair_i=pair_i, pair_j=pair_j, pair_r2=pair_r2,
+        pair_mask=t(pair_mask), pairs=contact_pairs(pair_mask, r_self, dev),
         plane_mask=t(plane_mask), r_box=t(np.asarray(r_box, np.float32)),
         r_self=t(np.asarray(r_self, np.float32)), r_plane=t(np.asarray(r_plane, np.float32)),
     )
 
 
 def ur5_states_free(chain, geom: UR5Geom, scene, qs: torch.Tensor):
-    """(free (B,), n_checks (B,)) of configurations qs (B, 6): within the
-    limits, and no box, self or plane contact (JAX envs/ur5.py:124-143)."""
+    """(free, n_checks) of configurations qs (L, B, 6) in the lanes of a
+    stacked scene: within the limits, and no box, self
+    or plane contact (JAX envs/ur5.py:124-143)."""
 
-    valid = ((qs >= chain.lower) & (qs <= chain.upper)).all(dim=1)
-    p0, p1, _ = capsules_world(chain, qs)
-    p0, p1 = p0.contiguous(), p1.contiguous()
+    valid = ((qs >= chain.lower) & (qs <= chain.upper)).all(dim=-1)
+    p0, p1 = lane_capsules(chain, qs)
     box = capsules_hit(p0, p1, geom.r_box, scene.centers, scene.halfs, scene.mask)
-    self_hit = pair_contacts(p0, p1, geom.pair_i, geom.pair_j, geom.pair_r2)
+    self_hit = pair_contacts(p0, p1, geom.pairs)
     zmin = torch.minimum(p0[..., 2], p1[..., 2])
-    plane = ((zmin < geom.r_plane) & geom.plane_mask).any(dim=1)
+    plane = ((zmin < geom.r_plane) & geom.plane_mask).any(dim=-1)
     return valid & ~box & ~self_hit & ~plane, valid.to(torch.int32)
 
 
 def make_ur5_kernels(chain, geom: UR5Geom, rrt_eps: float, k_max: int) -> EnvKernels:
+    @lane_oracle
     def batch_state_free(scene, qs):
         return ur5_states_free(chain, geom, scene, qs)
 

@@ -80,3 +80,13 @@ def build_rgg_edges(v, valid, n_free: int, k1: int) -> EdgeList:
     dst = torch.cat([centers.reshape(-1), idx_all.reshape(-1), centers_f.reshape(-1), idx_f.reshape(-1)])
     alive = torch.cat([alive_all.reshape(-1), alive_all.reshape(-1), alive_f.reshape(-1), alive_f.reshape(-1)])
     return dedup_edges(src, dst, alive, n)
+
+
+def build_rgg_edges_lanes(v, valid, n_free: int, k1: int) -> EdgeList:
+    """:func:`build_rgg_edges` for a lane group (JAX ``_edges_v``,
+    planner_bundle.py:75-76): v (L, N, d), valid (L, N) -> EdgeList of
+    (L, E). One lane at a time, so every lane's edges are exactly its scalar
+    build's (ties broken lower index first)."""
+
+    lanes = [build_rgg_edges(v[i], valid[i], n_free, k1) for i in range(v.shape[0])]
+    return EdgeList(*(torch.stack(parts) for parts in zip(*lanes)))

@@ -204,3 +204,20 @@ def explorer_forward(
     row = torch.where(e_alive, dst, n)  # dead edges land in the dropped row
     policy.index_put_((row, src), score)
     return policy[:n]
+
+
+def explorer_forward_lanes(model: Explorer, v, node_valid, goal, edges, obstacles, obs_mask,
+                           loop: int) -> torch.Tensor:
+    """:func:`explorer_forward` over a lane group (JAX ``_model_v``,
+    planner_bundle.py:64-68): v (L, N, d), node_valid (L, N), goal (L, d),
+    edges of (L, E), obstacles (L, M, obs) and obs_mask (L, M) -> (L, N, N).
+
+    One lane at a time: a batched matmul over a lane axis may round
+    otherwise than the scalar shapes and flip a near-tie argmax of the
+    search, so the lane rows are the scalar rows by construction."""
+
+    return torch.stack([
+        explorer_forward(model, v[i], node_valid[i], goal[i], edges.src[i], edges.dst[i],
+                         edges.alive[i], obstacles[i], obs_mask[i], loop=loop)
+        for i in range(v.shape[0])
+    ])

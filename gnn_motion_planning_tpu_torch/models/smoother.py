@@ -126,3 +126,17 @@ def smoother_forward(
         path = torch.where(interior[:, None], proposal, path)
 
     return path * cfg.scale
+
+
+def smoother_forward_lanes(model: Smoother, path, path_mask, env_nodes, env_valid, n_free,
+                           base_src, base_dst, base_alive, loop: int) -> torch.Tensor:
+    """:func:`smoother_forward` over a lane group (JAX ``_smoother_v``,
+    planner_bundle.py:70-73): every argument with a leading lane axis
+    (``n_free`` a sequence of ints) -> (L, path length, d). One lane at a
+    time, so each lane's proposal is its scalar proposal."""
+
+    return torch.stack([
+        smoother_forward(model, path[i], path_mask[i], env_nodes[i], env_valid[i],
+                         int(n_free[i]), base_src[i], base_dst[i], base_alive[i], loop=loop)
+        for i in range(path.shape[0])
+    ])

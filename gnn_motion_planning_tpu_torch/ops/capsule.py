@@ -5,14 +5,17 @@ forward kinematics that XLA fused around it.
 Two entry points share one narrow phase in ``csrc/capsules_hit.cu``, built
 at first use with plain ``nvcc`` and bound with ``ctypes``:
 
-- ``capsules_hit`` answers, for each of B configurations, whether any of
-  its C capsules (segment p0 -> p1, radius r) comes closer than r to any
-  active axis-aligned box;
+- ``capsules_hit`` answers, for each of B configurations in each of L
+  lanes, whether any of its C capsules (segment p0 -> p1, radius r) comes
+  closer than r to any active axis-aligned box of its lane's scene;
 - ``chain_states_free`` takes the joint configurations themselves and
   returns ``(free, n_checks)`` as ``envs/kuka.py``'s ``batch_state_free``
   does: joint limits, forward kinematics and the narrow phase in one launch.
 
-For a CUDA tensor each launches its kernel; for a CPU tensor each runs its
+A lane is one problem with its own boxes: the port of ``jax.vmap`` over a
+``pallas_call``, which gives the Pallas kernel a grid axis of problems. A
+single problem is one lane. For a CUDA tensor each entry launches its
+kernel once for all lanes; for a CPU tensor each runs its
 plain PyTorch version (``capsules_hit_reference``,
 ``chain_states_free_reference``). There is no fallback from one to the
 other: a CUDA tensor launches the kernel or raises.
@@ -35,7 +38,8 @@ from typing import NamedTuple, Tuple
 
 import torch
 
-from gnn_motion_planning_tpu_torch.envs.kinematics import ChainParams, capsules_world
+from gnn_motion_planning_tpu_torch.envs.geometry import near_pairs
+from gnn_motion_planning_tpu_torch.envs.kinematics import ChainParams, capsules_world, fma32
 from gnn_motion_planning_tpu_torch.utils.build import build_shared_library
 
 _EPS = 1e-12
@@ -98,10 +102,10 @@ def load_library():
         lib = ctypes.CDLL(str(path))
         ptr, i32 = ctypes.c_void_p, ctypes.c_int
         lib.capsules_hit_launch.restype = i32
-        lib.capsules_hit_launch.argtypes = [ptr] * 6 + [i32, i32, i32, ptr, i32, ptr]
+        lib.capsules_hit_launch.argtypes = [ptr] * 6 + [i32] * 4 + [ptr, i32, ptr]
         lib.chain_states_free_launch.restype = i32
         lib.chain_states_free_launch.argtypes = (
-            [ptr, i32, i32, ptr, ptr, i32, i32, ptr, ptr, ptr, i32] + [ptr] * 4 + [i32, ptr]
+            [ptr, i32, i32, i32, ptr, ptr, i32, i32, ptr, ptr, ptr, i32] + [ptr] * 4 + [i32, ptr]
         )
         _lib = lib
     return _lib
@@ -170,12 +174,15 @@ def unpack_chain(packed: PackedChain) -> ChainParams:
     )
 
 
-def _seg_box_contact(u, v, h, r2):
-    """contact for (…) capsule-box pairs, per-axis lists of tensors.
+def _seg_box_sq_dist_rows(u, v, h):
+    """Squared distance for (…) capsule-box pairs, per-axis lists of tensors.
 
     Mirrors pallas_capsule.py::_seg_box_contact_rows: the same candidate set
     (t = 0, 1 and the ±h crossing of each axis), the same _EPS guards, the
-    same bracket, vertex and order of mins.
+    same bracket, vertex and order of mins; and rounds as XLA's CPU code
+    rounds ``envs/geometry.py::seg_box_sq_dist`` (that module's docstring):
+    ``u + t v`` and the sums of f, f' and the vertex denominator as fused
+    multiply-adds (``fma32``), the vertex numerator in order.
     """
 
     zeros = torch.zeros_like(u[0])
@@ -188,19 +195,15 @@ def _seg_box_contact(u, v, h, r2):
         cands.append(torch.where(ok, (-h[i] - u[i]) / safe, 0.0).clamp(0.0, 1.0))
 
     def f(t):
-        acc = zeros
-        for i in range(3):
-            d = torch.clamp_min((u[i] + t * v[i]).abs() - h[i], 0.0)
-            acc = acc + d * d
-        return acc
+        d = [torch.clamp_min(fma32(t, v[i], u[i]).abs() - h[i], 0.0) for i in range(3)]
+        return fma32(d[2], d[2], fma32(d[0], d[0], d[1] * d[1]))
 
     def g(t):
-        acc = zeros
+        x = []
         for i in range(3):
-            w = u[i] + t * v[i]
-            e = torch.clamp_min(w.abs() - h[i], 0.0)
-            acc = acc + 2.0 * torch.sign(w) * e * v[i]
-        return acc
+            w = fma32(t, v[i], u[i])
+            x.append(2.0 * torch.sign(w) * torch.clamp_min(w.abs() - h[i], 0.0))
+        return fma32(x[2], v[2], fma32(x[1], v[1], x[0] * v[0]))
 
     t_lo, t_hi = zeros, ones
     for t in cands:
@@ -210,43 +213,70 @@ def _seg_box_contact(u, v, h, r2):
     t_hi = torch.maximum(t_hi, t_lo)
 
     mid = 0.5 * (t_lo + t_hi)
-    num, den = zeros, zeros
+    alpha, beta = [], []
     for i in range(3):
-        wm = u[i] + mid * v[i]
+        wm = fma32(mid, v[i], u[i])
         active = wm.abs() > h[i]
         s = torch.sign(wm)
-        alpha = torch.where(active, s * v[i], 0.0)
-        beta = torch.where(active, s * u[i] - h[i], 0.0)
-        num = num + alpha * beta
-        den = den + alpha * alpha
+        alpha.append(torch.where(active, s * v[i], 0.0))
+        beta.append(torch.where(active, s * u[i] - h[i], 0.0))
+    num = (alpha[0] * beta[0] + alpha[1] * beta[1]) + alpha[2] * beta[2]
+    den = fma32(alpha[2], alpha[2], fma32(alpha[1], alpha[1], alpha[0] * alpha[0]))
     t_star = torch.minimum(torch.maximum(-num / torch.clamp_min(den, _EPS), t_lo), t_hi)
 
     d2 = f(cands[0])
     for t in cands[1:] + [t_lo, t_hi, t_star]:
         d2 = torch.minimum(d2, f(t))
-    return d2 < r2
+    return d2
+
+
+def _active_boxes(centers, halfs, mask):
+    """Each lane's active boxes first, in index order: (L, A, 3) twice and
+    (L, A) bool, A the most any lane has."""
+
+    order = torch.sort((~mask).to(torch.int8), dim=1, stable=True).indices
+    A = int(mask.sum(dim=1).max()) if mask.numel() else 0
+    idx = order[:, :A]
+    take = lambda t: torch.gather(t, 1, idx[..., None].expand(-1, -1, 3))  # noqa: E731
+    return take(centers), take(halfs), torch.gather(mask, 1, idx)
 
 
 def capsule_contacts(p0, p1, r, centers, halfs, mask):
-    """(B, C, A) bool: contact of every capsule with every active box, the
-    A active boxes in index order."""
+    """(L, B, C, A) bool: contact of every capsule with every active box of
+    its lane, the A active boxes in index order (lanes with fewer active
+    boxes are padded with boxes that never make contact).
+
+    Only the pairs ``envs/geometry.py::near_pairs`` keeps go through the
+    exact test; every other pair is farther apart than the radius.
+    """
 
     # inactive boxes never make contact: evaluate the active ones only
-    active = mask.nonzero().flatten()
-    centers, halfs = centers[active], halfs[active]
-    v = p1 - p0  # (B, C, 3)
-    u = [p0[:, :, None, i] - centers[None, None, :, i] for i in range(3)]  # (B, C, A)
-    vv = [v[:, :, None, i].expand_as(u[0]) for i in range(3)]
-    h = [halfs[None, None, :, i] for i in range(3)]
-    r2 = (r * r)[None, :, None]
-    return _seg_box_contact(u, vv, h, r2)
+    centers, halfs, on = _active_boxes(centers, halfs, mask)
+    L, B, C = p0.shape[:3]
+    A = centers.shape[1]
+    lo = torch.minimum(p0, p1)[:, :, :, None, :]  # (L, B, C, 1, 3)
+    hi = torch.maximum(p0, p1)[:, :, :, None, :]
+    reach = torch.where(on[:, None, None, :], r[None, None, :, None], -torch.inf)
+    idx = near_pairs(lo, hi, (centers - halfs)[:, None, None], (centers + halfs)[:, None, None],
+                     reach)
+    out = torch.zeros((L, B, C, A), dtype=torch.bool, device=p0.device)
+    lane, b, c, a = idx
+    q0, q1 = p0[lane, b, c], p1[lane, b, c]  # (K, 3)
+    ctr, half = centers[lane, a], halfs[lane, a]
+    u = [q0[:, i] - ctr[:, i] for i in range(3)]
+    v = [q1[:, i] - q0[:, i] for i in range(3)]
+    h = [half[:, i] for i in range(3)]
+    rc = r[c]
+    out[idx] = _seg_box_sq_dist_rows(u, v, h) < rc * rc
+    return out
 
 
 def capsules_hit_reference(p0, p1, r, centers, halfs, mask):
-    """Plain PyTorch version: (B,) bool from (B, C, 3) endpoints, (C,) radii,
-    (O, 3) centres and half-extents and an (O,) active-box mask."""
+    """Plain PyTorch version: (L, B) bool from (L, B, C, 3) endpoints, (C,)
+    radii, each lane's (L, O, 3) centres and half-extents and (L, O)
+    active-box mask."""
 
-    return capsule_contacts(p0, p1, r, centers, halfs, mask).flatten(1).any(dim=1)
+    return capsule_contacts(p0, p1, r, centers, halfs, mask).flatten(2).any(dim=2)
 
 
 def chain_states_free_reference(qs, packed: PackedChain, scene):
@@ -255,9 +285,12 @@ def chain_states_free_reference(qs, packed: PackedChain, scene):
     ``capsules_hit_reference`` as ``envs/kuka.py``'s CPU path runs them."""
 
     chain = unpack_chain(packed)
-    valid = ((qs >= chain.lower) & (qs <= chain.upper)).all(dim=1)
-    p0, p1, r = capsules_world(chain, qs)
-    hit = capsules_hit_reference(p0, p1, r, scene.centers, scene.halfs, scene.mask)
+    L, B, dof = qs.shape
+    valid = ((qs >= chain.lower) & (qs <= chain.upper)).all(dim=-1)
+    p0, p1, r = capsules_world(chain, qs.reshape(L * B, dof))
+    C = p0.shape[1]
+    hit = capsules_hit_reference(p0.reshape(L, B, C, 3), p1.reshape(L, B, C, 3), r,
+                                 scene.centers, scene.halfs, scene.mask)
     return valid & ~hit, valid.to(torch.int32)
 
 
@@ -286,55 +319,67 @@ def _launch(name: str, device, *args) -> None:
     LAUNCHES[name] += 1
 
 
-def lanes_for(batch: int) -> int:
-    """Lanes a configuration, in both kernels, for a batch of ``batch``."""
+def lanes_for(total: int) -> int:
+    """Lanes a configuration, in both kernels, for a launch of ``total``
+    configurations (lanes of problems times configurations a lane)."""
 
-    return 16 if batch >= LANES_16_FROM else 32
+    return 16 if total >= LANES_16_FROM else 32
+
+
+def _check_scene(centers, halfs, mask, L, dev):
+    O = centers.shape[-2] if centers.dim() == 3 else -1
+    _check("centers", centers, torch.float32, (L, O, 3), dev)
+    _check("halfs", halfs, torch.float32, (L, O, 3), dev)
+    _check("mask", mask, torch.bool, (L, O), dev)
+    return O
 
 
 def capsules_hit(p0, p1, r, centers, halfs, mask):
-    """(B,) bool: does any capsule of a configuration touch an active box?
+    """(L, B) bool: does any capsule of a configuration touch an active box
+    of its lane's scene?
 
-    p0, p1: (B, C, 3) float32; r: (C,) float32; centers, halfs: (O, 3)
-    float32; mask: (O,) bool. CPU tensors take the plain version; CUDA
-    tensors launch the kernel (and count the launch).
+    p0, p1: (L, B, C, 3) float32, B configurations in each of L lanes (one
+    problem a lane; a single problem is L = 1); r: (C,) float32; centers,
+    halfs: (L, O, 3) float32; mask: (L, O) bool. CPU tensors take the plain
+    version; CUDA tensors launch the kernel once for all lanes (and count
+    the launch).
     """
 
     if p0.device.type == "cpu":
         return capsules_hit_reference(p0, p1, r, centers, halfs, mask)
     if p0.device.type != "cuda":
         raise ValueError(f"capsules_hit has no kernel for {p0.device}")
-    B, C = p0.shape[0], p0.shape[1]
-    O = centers.shape[0]
+    if p0.dim() != 4:
+        raise ValueError(f"p0 must be (L, B, C, 3), got {tuple(p0.shape)}")
+    L, B, C = p0.shape[:3]
     dev = p0.device
-    _check("p0", p0, torch.float32, (B, C, 3), dev)
-    _check("p1", p1, torch.float32, (B, C, 3), dev)
+    _check("p0", p0, torch.float32, (L, B, C, 3), dev)
+    _check("p1", p1, torch.float32, (L, B, C, 3), dev)
     _check("r", r, torch.float32, (C,), dev)
-    _check("centers", centers, torch.float32, (O, 3), dev)
-    _check("halfs", halfs, torch.float32, (O, 3), dev)
-    _check("mask", mask, torch.bool, (O,), dev)
+    O = _check_scene(centers, halfs, mask, L, dev)
     if O > MAX_BOXES:
         raise ValueError(f"capsules_hit takes at most {MAX_BOXES} boxes, got {O}")
-    out = torch.empty(B, dtype=torch.bool, device=dev)
-    if B == 0:
+    out = torch.empty((L, B), dtype=torch.bool, device=dev)
+    if L * B == 0:
         return out
     _launch("capsules_hit", dev, p0.data_ptr(), p1.data_ptr(), r.data_ptr(),
-            centers.data_ptr(), halfs.data_ptr(), mask.data_ptr(), B, C, O, out.data_ptr(),
-            lanes_for(B))
+            centers.data_ptr(), halfs.data_ptr(), mask.data_ptr(), L, B, C, O,
+            out.data_ptr(), lanes_for(L * B))
     return out
 
 
 def chain_states_free(qs, packed: PackedChain, scene, endpoints=None):
-    """(free (B,) bool, n_checks (B,) int32) for joint configurations qs.
+    """(free (L, B) bool, n_checks (L, B) int32) for joint configurations qs.
 
-    qs: (B, dof) float32; packed: ``pack_chain`` of the robot; scene: centers, halfs (O, 3) float32 and mask (O,) bool. A
-    configuration is valid when every joint lies within its limits (NaN is
-    not); free = valid and no capsule touches an active box; n_checks =
-    valid. CPU tensors take the plain version; CUDA tensors launch the fused
-    kernel (and count the launch).
-    ``endpoints``, two (B, C, 3) float32
-    CUDA tensors or None, receive the kernel's capsule endpoints for every
-    configuration: a diagnostic, None on the main path.
+    qs: (L, B, dof) float32, B configurations in each of L lanes; packed:
+    ``pack_chain`` of the robot; scene: each lane's centers, halfs
+    (L, O, 3) float32 and mask (L, O) bool. A configuration is valid when
+    every joint lies within its limits (NaN is not); free = valid and no
+    capsule touches an active box of its lane; n_checks = valid. CPU
+    tensors take the plain version; CUDA tensors launch the fused kernel
+    once for all lanes (and count the launch). ``endpoints``, two
+    (L, B, C, 3) float32 CUDA tensors or None, receive the kernel's capsule
+    endpoints for every configuration: a diagnostic, None on the main path.
     """
 
     if qs.device.type == "cpu":
@@ -342,15 +387,15 @@ def chain_states_free(qs, packed: PackedChain, scene, endpoints=None):
     if qs.device.type != "cuda":
         raise ValueError(f"chain_states_free has no kernel for {qs.device}")
     J, C, dof = packed.sizes
-    B, O = qs.shape[0], scene.centers.shape[0]
+    if qs.dim() != 3:
+        raise ValueError(f"qs must be (L, B, dof), got {tuple(qs.shape)}")
+    L, B = qs.shape[:2]
     dev = qs.device
-    _check("qs", qs, torch.float32, (B, dof), dev)
+    _check("qs", qs, torch.float32, (L, B, dof), dev)
     n_floats, n_ints = packed_lengths(J, C, dof)
     _check("packed floats", packed.floats, torch.float32, (n_floats,), dev)
     _check("packed ints", packed.ints, torch.int32, (n_ints,), dev)
-    _check("centers", scene.centers, torch.float32, (O, 3), dev)
-    _check("halfs", scene.halfs, torch.float32, (O, 3), dev)
-    _check("mask", scene.mask, torch.bool, (O,), dev)
+    O = _check_scene(scene.centers, scene.halfs, scene.mask, L, dev)
     if J > MAX_JOINTS or dof > J or C > MAX_CAPSULES or O > MAX_BOXES:
         raise ValueError(
             f"chain_states_free takes at most {MAX_JOINTS} joints, {MAX_CAPSULES} "
@@ -359,14 +404,14 @@ def chain_states_free(qs, packed: PackedChain, scene, endpoints=None):
     ptr0 = ptr1 = None
     if endpoints is not None:
         for name, t in zip(("endpoints p0", "endpoints p1"), endpoints):
-            _check(name, t, torch.float32, (B, C, 3), dev)
+            _check(name, t, torch.float32, (L, B, C, 3), dev)
         ptr0, ptr1 = endpoints[0].data_ptr(), endpoints[1].data_ptr()
-    free = torch.empty(B, dtype=torch.bool, device=dev)
-    n_checks = torch.empty(B, dtype=torch.int32, device=dev)
-    if B == 0:
+    free = torch.empty((L, B), dtype=torch.bool, device=dev)
+    n_checks = torch.empty((L, B), dtype=torch.int32, device=dev)
+    if L * B == 0:
         return free, n_checks
-    _launch("chain_states_free", dev, qs.data_ptr(), B, dof, packed.floats.data_ptr(),
+    _launch("chain_states_free", dev, qs.data_ptr(), L, B, dof, packed.floats.data_ptr(),
             packed.ints.data_ptr(), J, C, scene.centers.data_ptr(), scene.halfs.data_ptr(),
             scene.mask.data_ptr(), O, free.data_ptr(), n_checks.data_ptr(), ptr0, ptr1,
-            lanes_for(B))
+            lanes_for(L * B))
     return free, n_checks

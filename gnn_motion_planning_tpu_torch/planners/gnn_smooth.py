@@ -6,7 +6,9 @@ sequential accept chain: one batched check evaluates, for every path slot,
 both variants of the previous node (kept or accepted) and the next segment.
 The chain itself (64 booleans, an int count and a float32 sum) is then
 resolved on the host with the same float32 accumulation order, which is
-also where the step's ``converged`` test has to be read anyway.
+also where the step's ``converged`` test has to be read anyway. Paths of
+several problems (lanes, ``api/batched.py``) go through one projection
+together; one path is the same code with one lane.
 """
 
 from __future__ import annotations
@@ -14,7 +16,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from gnn_motion_planning_tpu_torch.envs.base import BIG, EnvKernels
+from gnn_motion_planning_tpu_torch.envs.base import BIG, EnvKernels, one_lane
 from gnn_motion_planning_tpu_torch.envs.kinematics import norm_last
 
 _CONVERGED = np.float32(1e-5)
@@ -42,136 +44,182 @@ def _resolve(okA, cA, okB, cB, ok2, c2, interior, dnorm, count):
 
 
 def _candidates(kernels, path, new_path, rrt_eps, n_path):
-    L = path.shape[0]
+    """Per lane (leading axis P): the steered candidates, both variants of
+    each slot's previous node, the next node and the interior mask."""
+
+    L = path.shape[1]
     dev = path.device
     dist = norm_last(path - new_path)
     steer = kernels.interpolate(path, new_path, rrt_eps / torch.clamp_min(dist, 1e-30))
-    cand = torch.where((dist < rrt_eps)[:, None], new_path, steer)
+    cand = torch.where((dist < rrt_eps)[..., None], new_path, steer)
     i = torch.arange(L, device=dev)
-    prev_old = path[torch.clamp_min(i - 1, 0)]
-    prev_cand = cand[torch.clamp_min(i - 1, 0)]
-    nxt = path[torch.clamp_max(i + 1, L - 1)]
-    interior = (i >= 1) & (i <= n_path - 2)
+    prev_old = path[:, torch.clamp_min(i - 1, 0)]
+    prev_cand = cand[:, torch.clamp_min(i - 1, 0)]
+    nxt = path[:, torch.clamp_max(i + 1, L - 1)]
+    interior = (i >= 1) & (i <= n_path[:, None] - 2)
     return cand, prev_old, prev_cand, nxt, interior
 
 
-def _outer_steps(old_path, new_path, n_path, rrt_eps) -> int:
-    live = torch.arange(old_path.shape[0], device=old_path.device) < n_path
+def _outer_steps(old_path, new_path, n_path, rrt_eps) -> list:
+    live = torch.arange(old_path.shape[1], device=old_path.device) < n_path[:, None]
     disp = norm_last(old_path - new_path)
-    return int(torch.ceil(torch.where(live, disp, 0.0).amax() / rrt_eps).to(torch.int32))
+    k = torch.ceil(torch.where(live, disp, 0.0).amax(dim=1) / rrt_eps).to(torch.int32)
+    return k.tolist()
+
+
+def _flat_checks(kernels, scene, qa, qb, e_int, rrt_eps, slots):
+    """The flat-packed edge checks of one sweep step for every lane: per
+    edge its two endpoints and K = int(d / eps) interior points, interior
+    path nodes only, packed into ``slots`` states a lane and checked in one
+    oracle call. Returns (ok (P, E), count (P, E), overflow (P,))."""
+
+    lower, upper = kernels.bounds
+    P, E = qa.shape[:2]
+    dev = qa.device
+    s = torch.arange(slots, device=dev).expand(P, slots).contiguous()
+    valid_e = ((qa >= lower) & (qa <= upper)).all(-1) & ((qb >= lower) & (qb <= upper)).all(-1)
+    d_e = kernels.distance(qa, qb)
+    K_e = torch.where(e_int, (d_e / rrt_eps).to(torch.int64), 0)
+    n_slot = torch.where(e_int, K_e + 2, 0)  # [qa, qb, interior...]
+    cum = torch.cumsum(n_slot, 1)
+    offs = cum - n_slot
+    total = cum[:, -1]
+
+    eid = torch.clamp_max(torch.searchsorted(cum, s, right=True), E - 1)
+    t = s - offs.gather(1, eid)
+    in_use = s < total[:, None]
+    take = lambda x: torch.gather(x, 1, eid[..., None].expand(-1, -1, x.shape[-1]))  # noqa: E731
+    qa_s, qb_s = take(qa), take(qb)
+    Kf = torch.clamp_min(K_e.gather(1, eid), 1).to(qa.dtype)
+    coeff = (t - 2).to(qa.dtype) / Kf
+    pt = torch.where(
+        (t == 0)[..., None],
+        qa_s,
+        torch.where((t == 1)[..., None], qb_s, qa_s + coeff[..., None] * (qb_s - qa_s)),
+    )
+    free_s, _ = kernels.batch_state_free(scene, pt)
+    free_s = free_s | ~in_use
+
+    off_c = torch.clamp_max(offs, slots - 1)
+    fa = free_s.gather(1, off_c)
+    fb = free_s.gather(1, torch.clamp_max(off_c + 1, slots - 1))
+    fail = in_use & (t >= 2) & ~free_s
+    ff = torch.full((P, E), BIG, dtype=torch.int64, device=dev).scatter_reduce(
+        1, eid, torch.where(fail, t - 2, BIG), "amin", include_self=True
+    )
+    int_free = ff == BIG
+    int_cnt = torch.where(int_free, K_e, ff + 1)
+    ok_e = valid_e & fa & fb & int_free
+    zero = torch.zeros_like(int_cnt)
+    cnt_e = torch.where(
+        valid_e, 1 + torch.where(fa, 1 + torch.where(fb, int_cnt, zero), zero), zero
+    )
+    return ok_e, cnt_e, total > slots
+
+
+def make_projection_lanes(kernels: EnvKernels, rrt_eps: float, flat: bool, slots: int = 4096):
+    """proposed_path_smootherv2 (smoother.py:194-216) for P paths at once,
+    each with its own scene lane (JAX ``jax.vmap(project_core)``,
+    planner_bundle.py:365): ``project(scene, old_path (P, L, d), new_path,
+    n_path (P,)) -> (paths (P, L, d), counts [P], overflow [P])``.
+
+    Each Gauss-Seidel step hoists all edge checks of the sequential accept
+    chain out of it: for every slot both variants of the previous node
+    (kept or accepted) and the next segment, in one oracle call for all
+    paths. The chain itself is resolved on the host, where the step's
+    ``converged`` test is read anyway. A path stops at its own step count
+    or convergence, as under ``vmap``.
+
+    ``flat`` (envs with kernel bounds, JAX ``make_projection_core_flat``,
+    gnn_smooth.py:151-308) checks only the states the sweep counts, packed
+    into ``slots`` states a path; a path whose step needs more raises its
+    overflow flag, and the caller redoes it at the full budget. Otherwise
+    every edge goes through the env's full ``edge_free`` (overflow never
+    set).
+    """
+
+    if flat:
+        assert kernels.bounds is not None, "flat projection needs kernel bounds"
+
+    def project(scene, old_path, new_path, n_path):
+        P, L = old_path.shape[:2]
+        dev = old_path.device
+        n_path = torch.as_tensor(n_path, device=dev).reshape(P)
+        steps = _outer_steps(old_path, new_path, n_path, rrt_eps)
+        path = old_path
+        counts, overflow = [0] * P, [False] * P
+        running = [k > 0 for k in steps]
+        for step in range(max(steps, default=0)):
+            if not any(running):
+                break
+            cand, prev_old, prev_cand, nxt, interior = _candidates(
+                kernels, path, new_path, rrt_eps, n_path
+            )
+            qa = torch.cat([prev_old, prev_cand, nxt], dim=1)  # (P, 3L, d)
+            qb = cand.repeat(1, 3, 1)
+            if flat:
+                ok, cnt, ovf = _flat_checks(kernels, scene, qa, qb, interior.repeat(1, 3),
+                                            rrt_eps, slots)
+            else:
+                ok, cnt = kernels.edge_free(scene, qa, qb)
+                ovf = torch.zeros(P, dtype=torch.bool, device=dev)
+            dnorm = norm_last(cand - new_path)
+            host = torch.cat([
+                ok.to(torch.float64), cnt.to(torch.float64), dnorm.to(torch.float64),
+                interior.to(torch.float64), ovf.to(torch.float64)[:, None],
+            ], dim=1).cpu().numpy()
+            accepted = np.zeros((P, L), bool)
+            for i in range(P):
+                if not running[i]:
+                    continue
+                h = host[i]
+                okh, cnth = h[: 3 * L] > 0.5, h[3 * L : 6 * L].astype(np.int64)
+                overflow[i] |= bool(h[-1] > 0.5)
+                accepted[i], counts[i], diff = _resolve(
+                    okh[:L], cnth[:L], okh[L : 2 * L], cnth[L : 2 * L], okh[2 * L :],
+                    cnth[2 * L :], h[7 * L : 8 * L] > 0.5,
+                    h[6 * L : 7 * L].astype(np.float32), counts[i],
+                )
+                running[i] = step + 1 < steps[i] and not diff < _CONVERGED
+            acc = torch.as_tensor(accepted, device=dev)
+            path = torch.where(acc[..., None], cand, path)
+        return path, counts, overflow
+
+    return project
+
+
+def _first_lane(project, scene, old_path, new_path, n_path: int):
+    """One path through a projection of P paths (P = 1)."""
+
+    path, counts, overflow = project(one_lane(scene), old_path[None], new_path[None], [n_path])
+    return path[0], counts[0], overflow[0]
 
 
 def make_projection_core(kernels: EnvKernels, rrt_eps: float):
     """proposed_path_smootherv2 (smoother.py:194-216) at the full edge
-    budget: returns ``(path, count, overflow)``, overflow always False. The
-    redo path when the flat projection overflows, and the only core of envs
-    without kernel bounds (the mazes)."""
+    budget, for one path: returns ``(path, count, overflow)``, overflow
+    always False. The redo path when the flat projection overflows, and the
+    only core of envs without kernel bounds (the mazes)."""
+
+    lanes = make_projection_lanes(kernels, rrt_eps, flat=False)
 
     def project(scene, old_path, new_path, n_path: int):
-        L = old_path.shape[0]
-        K = _outer_steps(old_path, new_path, n_path, rrt_eps)
-        path, count = old_path, 0
-        for _ in range(K):
-            cand, prev_old, prev_cand, nxt, interior = _candidates(
-                kernels, path, new_path, rrt_eps, n_path
-            )
-            ok, cnt = kernels.edge_free(scene, torch.cat([prev_old, prev_cand, nxt]), cand.repeat(3, 1))
-            ok, cnt = ok.cpu().numpy(), cnt.cpu().numpy()
-            dnorm = norm_last(cand - new_path).cpu().numpy()
-            accepted, count, diff = _resolve(
-                ok[:L], cnt[:L], ok[L : 2 * L], cnt[L : 2 * L], ok[2 * L :], cnt[2 * L :],
-                interior.cpu().numpy(), dnorm, count,
-            )
-            acc = torch.as_tensor(accepted, device=path.device)
-            path = torch.where(acc[:, None], cand, path)
-            if diff < _CONVERGED:
-                break
-        return path, count, False
+        return _first_lane(lanes, scene, old_path, new_path, n_path)
 
     return project
 
 
 def make_projection_core_flat(kernels: EnvKernels, rrt_eps: float, slots: int = 4096):
-    """Flat-packed projection sweep (gnn_smooth.py:151-308): the same
-    semantics as :func:`make_projection_core`, checking only the states the
-    reference sweep counts — per edge its two endpoints and K = int(d/eps)
-    interior points, interior path nodes only — packed into one
-    ``slots``-wide batch per step, which the capsule kernel takes whole. A
-    step needing more than ``slots`` states raises the overflow flag, and
-    the caller redoes the projection with the full kernel."""
+    """Flat-packed projection sweep for one path (gnn_smooth.py:151-308):
+    the semantics of :func:`make_projection_core`, checking only the states
+    the reference sweep counts packed into one ``slots``-wide batch per
+    step, which the capsule kernel takes whole. A step needing more than
+    ``slots`` states raises the overflow flag."""
 
-    assert kernels.bounds is not None, "flat projection needs kernel bounds"
-    lower, upper = kernels.bounds
+    lanes = make_projection_lanes(kernels, rrt_eps, flat=True, slots=slots)
 
     def project(scene, old_path, new_path, n_path: int):
-        L = old_path.shape[0]
-        dev = old_path.device
-        K_outer = _outer_steps(old_path, new_path, n_path, rrt_eps)
-        s = torch.arange(slots, device=dev)
-        path, count, overflow = old_path, 0, False
-        for _ in range(K_outer):
-            cand, prev_old, prev_cand, nxt, interior = _candidates(
-                kernels, path, new_path, rrt_eps, n_path
-            )
-            qa = torch.cat([prev_old, prev_cand, nxt])  # (3L, d)
-            qb = cand.repeat(3, 1)
-            e_int = interior.repeat(3)
-            valid_e = ((qa >= lower) & (qa <= upper)).all(-1) & ((qb >= lower) & (qb <= upper)).all(-1)
-            d_e = kernels.distance(qa, qb)
-            K_e = torch.where(e_int, (d_e / rrt_eps).to(torch.int64), 0)
-            n_slot = torch.where(e_int, K_e + 2, 0)  # [qa, qb, interior...]
-            cum = torch.cumsum(n_slot, 0)
-            offs = cum - n_slot
-            total = cum[-1]
-
-            eid = torch.clamp_max(torch.searchsorted(cum, s, right=True), 3 * L - 1)
-            t = s - offs[eid]
-            in_use = s < total
-            qa_s = qa[eid]
-            disp_s = (qb - qa)[eid]
-            Kf = torch.clamp_min(K_e[eid], 1).to(qa.dtype)
-            coeff = (t - 2).to(qa.dtype) / Kf
-            pt = torch.where(
-                (t == 0)[:, None],
-                qa_s,
-                torch.where((t == 1)[:, None], qb[eid], qa_s + coeff[:, None] * disp_s),
-            )
-            free_s, _ = kernels.batch_state_free(scene, pt)
-            free_s = free_s | ~in_use
-
-            off_c = torch.clamp_max(offs, slots - 1)
-            fa = free_s[off_c]
-            fb = free_s[torch.clamp_max(off_c + 1, slots - 1)]
-            fail = in_use & (t >= 2) & ~free_s
-            ff = torch.full((3 * L,), BIG, dtype=torch.int64, device=dev).scatter_reduce(
-                0, eid, torch.where(fail, t - 2, BIG), "amin", include_self=True
-            )
-            int_free = ff == BIG
-            int_cnt = torch.where(int_free, K_e, ff + 1)
-            ok_e = valid_e & fa & fb & int_free
-            zero = torch.zeros_like(int_cnt)
-            cnt_e = torch.where(
-                valid_e, 1 + torch.where(fa, 1 + torch.where(fb, int_cnt, zero), zero), zero
-            )
-            dnorm = norm_last(cand - new_path)
-
-            host = torch.cat([
-                ok_e.to(torch.float64), cnt_e.to(torch.float64), dnorm.to(torch.float64),
-                interior.to(torch.float64), (total > slots).to(torch.float64).reshape(1),
-            ]).cpu().numpy()
-            ok, cnt = host[: 3 * L] > 0.5, host[3 * L : 6 * L].astype(np.int64)
-            dn = host[6 * L : 7 * L].astype(np.float32)
-            intr = host[7 * L : 8 * L] > 0.5
-            overflow |= bool(host[-1] > 0.5)
-            accepted, count, diff = _resolve(
-                ok[:L], cnt[:L], ok[L : 2 * L], cnt[L : 2 * L], ok[2 * L :], cnt[2 * L :],
-                intr, dn, count,
-            )
-            acc = torch.as_tensor(accepted, device=dev)
-            path = torch.where(acc[:, None], cand, path)
-            if diff < _CONVERGED:
-                break
-        return path, count, overflow
+        return _first_lane(lanes, scene, old_path, new_path, n_path)
 
     return project
 

@@ -302,3 +302,179 @@ def test_native_dual_core_equals_jax():
     np.testing.assert_array_equal(got_cnt, want_cnt)
     assert got.any() and not got.all()
     assert tenv._native.dof == 14
+
+
+NEAR_STEPS = (17, 18, 19, 20)
+NEAR_CONFIGS = ("ur5", "kuka14", "snake7", "kuka7")
+
+
+@pytest.fixture(scope="module", params=NEAR_CONFIGS)
+def near_envs(request):
+    """(name, port env, JAX env) for the near-contact tests."""
+
+    from gnn_motion_planning_tpu.envs.kuka import KukaEnv as JaxKukaEnv
+    from gnn_motion_planning_tpu_torch.envs.kuka import KukaEnv
+
+    port_cls, jax_cls = dict(CONFIGS, kuka7=(KukaEnv, JaxKukaEnv))[request.param]
+    return request.param, port_cls(device="cpu"), jax_cls()
+
+
+def _near_contact_steps(free_fn, qs, steps=NEAR_STEPS):
+    """:func:`_near_contact` at each bisection depth of ``steps``: 512
+    states a depth, 2**-depth of a segment from the oracle's boundary."""
+
+    ok = free_fn(qs)
+    free, hit = qs[ok], qs[~ok]
+    m = min(len(free), len(hit), 256)
+    lo, hi = free[:m].astype(np.float64), hit[:m].astype(np.float64)
+    out = {}
+    for k in range(1, max(steps) + 1):
+        mid = 0.5 * (lo + hi)
+        f = free_fn(mid.astype(np.float32))
+        lo = np.where(f[:, None], mid, lo)
+        hi = np.where(f[:, None], hi, mid)
+        if k in steps:
+            out[k] = np.concatenate([lo, hi]).astype(np.float32)
+    return out
+
+
+_COMPILED = {}
+
+
+def _compiled(key, make):
+    """A jitted JAX function built once per key for the whole module."""
+
+    if key not in _COMPILED:
+        _COMPILED[key] = make()
+    return _COMPILED[key]
+
+
+def _jax_endpoints(name, jenv, qs):
+    """JAX's capsule endpoints (B, C, 3) twice; kuka14's are the first
+    arm's capsules, then the second's."""
+
+    if name == "snake7":
+        def one(x):
+            return jax_capsules_world(
+                jenv.chain, jnp.stack([x[2], x[3], x[4], x[5]]),
+                base_rot=_yaw_rot(x[3]).astype(jnp.float32),
+                base_trans=jnp.array([x[0], x[1], 0.5]).astype(jnp.float32))[:2]
+    elif name == "kuka14":
+        def one(x):
+            a = jax_capsules_world(jenv.chain, x[:7], base_trans=jenv.base1)
+            b = jax_capsules_world(jenv.chain, x[7:], base_trans=jenv.base2)
+            return jnp.concatenate([a[0], b[0]]), jnp.concatenate([a[1], b[1]])
+    else:
+        def one(x):
+            return jax_capsules_world(jenv.chain, x)[:2]
+    fn = _compiled(("fk", name), lambda: jax.jit(jax.vmap(one)))
+    return tuple(np.array(t) for t in fn(jnp.asarray(qs)))
+
+
+def _xla_box(p0, p1, centers, halfs):
+    from gnn_motion_planning_tpu.envs.geometry import seg_box_sq_dist as jax_seg_box_sq_dist
+
+    fn = _compiled("box", lambda: jax.jit(jax.vmap(
+        lambda a, b, c, h: jax_seg_box_sq_dist(a[:, None, :], b[:, None, :], c[None], h[None]),
+        in_axes=(0, 0, None, None))))
+    return np.asarray(fn(p0, p1, centers, halfs))
+
+
+def _xla_pairs(a0, a1, b0, b1):
+    fn = _compiled("pairs", lambda: jax.jit(jax.vmap(
+        lambda w, x, y, z: jax_seg_seg_sq_dist(w[:, None], x[:, None], y[None], z[None]))))
+    return np.asarray(fn(a0, a1, b0, b1))
+
+
+def _jax_oracle(name, jenv, qs):
+    """JAX ``jit(vmap(state_free))`` on the env's current problem, compiled
+    once per config (the scene is an argument)."""
+
+    kern = jenv.kernels()
+    fn = _compiled(("oracle", name), lambda: jax.jit(jax.vmap(
+        lambda sc, q: kern.state_free(sc, q), in_axes=(None, 0))))
+    return np.asarray(fn(jenv.device_scene(), jnp.asarray(qs))[0])
+
+
+def kern_pairs(name, tenv, C):
+    """The capsule pairs an oracle tests, as index arrays into the two
+    capsule lists the JAX function takes (kuka14: arm against arm)."""
+
+    if name == "kuka14":
+        return np.nonzero(np.ones((C, C), bool))
+    mask = tenv.geom.pair_mask.numpy() if name == "ur5" else tenv.pair_mask
+    return np.nonzero(mask)
+
+
+# near-contact decisions that differ with each package's own FK, at 2**-17
+# to 2**-20 (2,048 states a problem; ROADMAP.md section 3): FK rounds
+# otherwise (XLA takes cos and sin from a C library call and contracts
+# FK's products; the port does neither), so the endpoints differ
+# in their last bits; fed the same endpoints, no decision differs (a)
+NEAR_RESIDUAL = {("ur5", 2000): 8, ("ur5", 2001): 7, ("kuka14", 2000): 11,
+                 ("kuka14", 2001): 1, ("snake7", 2000): 0, ("snake7", 2001): 4,
+                 ("kuka7", 2000): 10, ("kuka7", 2001): 9}
+
+
+@pytest.mark.parametrize("index", [2000, 2001])
+def test_near_contact_distances_equal_xla(near_envs, index):
+    """States 2**-17 to 2**-20 of a segment from a contact boundary, 512 a
+    depth (built as the 2**-14 states of test_state_oracle_equals_jax).
+
+    (a) Fed the same endpoints (JAX's FK), the port's seg_box_sq_dist, its
+    plain narrow phase (``ops/capsule.py``, the kernel's plain version) and
+    seg_seg_sq_dist give squared distances bit-equal to XLA's compiled
+    functions, in the call forms of the JAX oracles, so the decisions are
+    equal. (b) With each package's own FK, the oracles' decisions: at most
+    the residual NEAR_RESIDUAL (ROADMAP.md section 3) differs."""
+
+    from gnn_motion_planning_tpu_torch.envs.geometry import seg_box_sq_dist, vector_tail
+    from gnn_motion_planning_tpu_torch.ops.capsule import _seg_box_sq_dist_rows
+
+    name, tenv, jenv = near_envs
+    tenv.init_new_problem(index)
+    jenv.init_new_problem(index)
+    kern, scene = tenv.kernels(), tenv.device_scene()
+
+    def port(q):
+        return kern.batch_state_free(scene, torch.as_tensor(q))
+
+    # kuka7's problems hold few boxes: most uniform states are free
+    qs = _uniform(tenv, 16384 if name == "kuka7" else 2048, index).astype(np.float32)
+    near = _near_contact_steps(lambda q: port(q)[0].numpy(), qs)
+    states = np.concatenate([near[k] for k in NEAR_STEPS])
+    assert len(states) == 512 * len(NEAR_STEPS)
+
+    # (a) the same endpoints on both sides, the active boxes and the
+    # listed pairs (the JAX oracles mask the others off)
+    p0, p1 = _jax_endpoints(name, jenv, states)
+    on = scene.mask.numpy()
+    centers, halfs = scene.centers.numpy()[on], scene.halfs.numpy()[on]
+    want = _xla_box(p0, p1, centers, halfs)
+    T = torch.as_tensor
+    got = seg_box_sq_dist(T(p0)[:, :, None], T(p1)[:, :, None], T(centers)[None, None],
+                          T(halfs)[None, None]).numpy()
+    np.testing.assert_array_equal(got, want)
+    u = [T(p0)[:, :, None, i] - T(centers)[None, None, :, i] for i in range(3)]
+    v = [(T(p1) - T(p0))[:, :, None, i].expand_as(u[0]) for i in range(3)]
+    h = [T(halfs)[None, None, :, i].expand_as(u[0]) for i in range(3)]
+    np.testing.assert_array_equal(_seg_box_sq_dist_rows(u, v, h).numpy(), want)
+
+    if name != "kuka7":
+        if name == "kuka14":
+            C = p0.shape[1] // 2
+            a0, a1, b0, b1 = p0[:, :C], p1[:, :C], p0[:, C:], p1[:, C:]
+        else:
+            C = p0.shape[1]
+            a0, a1, b0, b1 = p0, p1, p0, p1
+        i, j = kern_pairs(name, tenv, C)
+        want = _xla_pairs(a0, a1, b0, b1)[:, i, j]
+        tail = T(vector_tail(C))
+        got = seg_seg_sq_dist(T(a0)[:, i], T(a1)[:, i], T(b0)[:, j], T(b1)[:, j],
+                              a_fused=tail[i], e_fused=tail[j]).numpy()
+        np.testing.assert_array_equal(got, want)
+
+    # (b) each package's own FK: decisions that differ
+    differ = int((port(states)[0].numpy() != _jax_oracle(name, jenv, states)).sum())
+    print(f"{name} {index}: {differ} of {len(states)} near-contact decisions differ")
+    assert differ <= NEAR_RESIDUAL[name, index]

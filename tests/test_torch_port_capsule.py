@@ -7,6 +7,7 @@ version; its contact decisions must equal the JAX package's Pallas kernel
 exactly. The kernel itself needs the card: that test skips without one.
 """
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -50,6 +51,14 @@ def _kuka7_scene(B=96):
     return tuple(t.numpy() for t in (p0, p1, r, sc.centers, sc.halfs, sc.mask))
 
 
+def _one_lane(args):
+    """The kernel's arguments for one problem: a lane axis of 1 on the
+    endpoints and the scene (the radii are shared)."""
+
+    p0, p1, r, centers, halfs, mask = args
+    return p0[None], p1[None], r, centers[None], halfs[None], mask[None]
+
+
 def _jax_decisions(args):
     jargs = [jnp.asarray(a) for a in args]
     pallas = np.asarray(jax_capsules_hit(*jargs, block=128, interpret=True))
@@ -61,7 +70,7 @@ def _jax_decisions(args):
 def test_plain_version_equals_jax_kernel(scene):
     args = _kuka7_scene() if scene == "kuka7" else _random_scene(int(scene[-1]))
     pallas, xla = _jax_decisions(args)
-    got = capsule.capsules_hit(*(torch.as_tensor(a) for a in args)).numpy()
+    got = capsule.capsules_hit(*_one_lane([torch.as_tensor(a) for a in args]))[0].numpy()
     np.testing.assert_array_equal(pallas, xla)
     np.testing.assert_array_equal(got, pallas)
     if scene != "kuka7":
@@ -76,14 +85,16 @@ def test_degenerate_segments_equal_jax_kernel():
             rng.uniform(-1, 1, (O, 3)).astype(np.float32),
             np.full((O, 3), 0.2, np.float32), np.ones(O, bool))
     pallas, _ = _jax_decisions(args)
-    got = capsule.capsules_hit(*(torch.as_tensor(a) for a in args)).numpy()
+    got = capsule.capsules_hit(*_one_lane([torch.as_tensor(a) for a in args]))[0].numpy()
     np.testing.assert_array_equal(got, pallas)
 
 
 def test_seg_box_sq_dist_matches_jax():
     p0, p1, _, centers, halfs, _ = _random_scene(3, B=50, C=4, O=6)
     args = (p0[:, :, None, :], p1[:, :, None, :], centers[None, None], halfs[None, None])
-    want = np.asarray(jax_seg_box_sq_dist(*(jnp.asarray(a) for a in args)))
+    # compiled, as the JAX oracles run it: the port rounds as XLA's fused
+    # program does (envs/geometry.py), not as op-by-op dispatch
+    want = np.asarray(jax.jit(jax_seg_box_sq_dist)(*(jnp.asarray(a) for a in args)))
     got = seg_box_sq_dist(*(torch.as_tensor(a) for a in args)).numpy()
     np.testing.assert_allclose(got, want, rtol=1e-6, atol=1e-12)
 
@@ -93,7 +104,7 @@ def test_cpu_tensors_take_the_plain_version_without_counting(monkeypatch):
         raise AssertionError("a CPU call built or loaded the kernel")
 
     monkeypatch.setattr(capsule, "load_library", no_build)
-    args = [torch.as_tensor(a) for a in _random_scene(0)]
+    args = _one_lane([torch.as_tensor(a) for a in _random_scene(0)])
     before = dict(capsule.LAUNCHES)
     got = capsule.capsules_hit(*args)
     assert torch.equal(got, capsule.capsules_hit_reference(*args))
@@ -101,7 +112,7 @@ def test_cpu_tensors_take_the_plain_version_without_counting(monkeypatch):
 
 
 def test_other_devices_raise():
-    args = [torch.as_tensor(a).to("meta") for a in _random_scene(0)]
+    args = _one_lane([torch.as_tensor(a).to("meta") for a in _random_scene(0)])
     with pytest.raises(ValueError, match="no kernel"):
         capsule.capsules_hit(*args)
 
@@ -122,7 +133,7 @@ def test_kernel_equals_plain_version_on_the_card():
         pytest.skip("needs an NVIDIA GPU; run: python -m pytest -m cuda tests/test_torch_port_*.py")
     # B = 200 runs whole warps a configuration, B = 4096 groups of 16 lanes
     for args in (_random_scene(0), _random_scene(1), _kuka7_scene(4096)):
-        t = [torch.as_tensor(a, device="cuda") for a in args]
+        t = _one_lane([torch.as_tensor(a, device="cuda") for a in args])
         n0 = capsule.LAUNCHES["capsules_hit"]
         got = capsule.capsules_hit(*t)
         assert capsule.LAUNCHES["capsules_hit"] == n0 + 1

@@ -23,7 +23,7 @@ import torch
 from gnn_motion_planning_tpu.envs.kuka import KukaEnv as JaxKukaEnv
 from gnn_motion_planning_tpu.envs.kuka import chain_state_free
 from gnn_motion_planning_tpu.envs.kuka import make_chain_kernels as jax_make_chain_kernels
-from gnn_motion_planning_tpu_torch.envs.base import make_fixed_step_edge_free
+from gnn_motion_planning_tpu_torch.envs.base import make_fixed_step_edge_free, one_lane
 from gnn_motion_planning_tpu_torch.envs.kuka import KukaEnv
 from gnn_motion_planning_tpu_torch.ops import capsule
 from gnn_motion_planning_tpu_torch.ops.capsule import (
@@ -71,7 +71,7 @@ def _edge_states(tenv, qa, qb):
 
     def oracle(scene, qs):
         seen.append(qs)
-        return capsule.chain_states_free_reference(qs, packed, scene)
+        return _lane_reference(qs, packed, scene)
 
     tk = tenv.kernels()
     edge_free = make_fixed_step_edge_free(
@@ -81,6 +81,11 @@ def _edge_states(tenv, qa, qb):
     return torch.cat(seen).numpy(), result
 
 
+def _lane_reference(qs, packed, scene):
+    free, cnt = capsule.chain_states_free_reference(qs[None], packed, one_lane(scene))
+    return free[0], cnt[0]
+
+
 def _all_states(tenv):
     qs = _oracle_inputs(tenv)
     states, _ = _edge_states(tenv, qs[:64], qs[64:])
@@ -88,7 +93,7 @@ def _all_states(tenv):
 
 
 def _reference(tenv, qs):
-    free, cnt = capsule.chain_states_free_reference(
+    free, cnt = _lane_reference(
         torch.as_tensor(qs), pack_chain(tenv.chain), tenv.device_scene()
     )
     return free.numpy(), cnt.numpy()
@@ -204,8 +209,8 @@ def test_cpu_tensors_take_the_plain_version_without_counting(monkeypatch):
     qs = torch.as_tensor(_oracle_inputs(env))
     packed = pack_chain(env.chain)
     before = dict(capsule.LAUNCHES)
-    got = capsule.chain_states_free(qs, packed, env.device_scene())
-    want = capsule.chain_states_free_reference(qs, packed, env.device_scene())
+    got = capsule.chain_states_free(qs[None], packed, one_lane(env.device_scene()))
+    want = capsule.chain_states_free_reference(qs[None], packed, one_lane(env.device_scene()))
     assert all(torch.equal(g, w) for g, w in zip(got, want))
     assert capsule.LAUNCHES == before
 
@@ -213,9 +218,9 @@ def test_cpu_tensors_take_the_plain_version_without_counting(monkeypatch):
 def test_other_devices_raise():
     env = KukaEnv(device="cpu")
     env.init_new_problem(2000)
-    qs = torch.zeros(4, env.config_dim, device="meta")
+    qs = torch.zeros(1, 4, env.config_dim, device="meta")
     with pytest.raises(ValueError, match="no kernel"):
-        capsule.chain_states_free(qs, pack_chain(env.chain), env.device_scene())
+        capsule.chain_states_free(qs, pack_chain(env.chain), one_lane(env.device_scene()))
 
 
 @pytest.mark.cuda
@@ -227,14 +232,15 @@ def test_fused_kernel_equals_plain_version_on_the_card():
     for kuka_file, map_file in ARMS.values():
         env = KukaEnv(kuka_file=kuka_file, map_file=map_file, device="cuda")
         env.init_new_problem(2000)
-        packed, scene = pack_chain(env.chain), env.device_scene()
+        packed, scene = pack_chain(env.chain), one_lane(env.device_scene())
         C = packed.sizes[1]
         # B = 4096 runs groups of 16 lanes a configuration, 31 and 1 whole warps
         for batch in (4096, 31, 1):
             qs = _configs(env, batch, batch).astype(np.float32)
             qs[10::20] += 7.0
-            q = torch.as_tensor(qs, device="cuda")
-            ends = (torch.empty(batch, C, 3, device="cuda"), torch.empty(batch, C, 3, device="cuda"))
+            q = torch.as_tensor(qs, device="cuda")[None]
+            ends = (torch.empty(1, batch, C, 3, device="cuda"),
+                    torch.empty(1, batch, C, 3, device="cuda"))
             want = capsule.chain_states_free_reference(q, packed, scene)
             for endpoints in (None, ends):
                 n0 = capsule.LAUNCHES["chain_states_free"]
@@ -243,7 +249,8 @@ def test_fused_kernel_equals_plain_version_on_the_card():
                 assert all(torch.equal(g, w) for g, w in zip(got, want))
             # the same ops in the same order; 1e-5 m leaves room for the last
             # bits of cosf and sinf, whose code is built with other flags in torch
-            p0, p1, _ = capsules_world(env.chain, q)
+            p0, p1, _ = capsules_world(env.chain, q[0])
+            p0, p1 = p0[None], p1[None]
             assert torch.allclose(ends[0], p0, rtol=0, atol=1e-5)
             assert torch.allclose(ends[1], p1, rtol=0, atol=1e-5)
     # the most boxes a launch takes, 16 of them active, above the floor and
@@ -253,10 +260,10 @@ def test_fused_kernel_equals_plain_version_on_the_card():
     O = capsule.MAX_BOXES
     mask = np.zeros(O, bool)
     mask[rng.choice(O, 16, replace=False)] = True
-    many = type(scene)(*(torch.as_tensor(a, device="cuda") for a in (
+    many = type(scene)(*(torch.as_tensor(a, device="cuda")[None] for a in (
         rng.uniform((-1, -1, 0), (1, 1, 1), (O, 3)).astype(np.float32),
         rng.uniform(0.05, 0.15, (O, 3)).astype(np.float32), mask)))
-    q = torch.as_tensor(_configs(env, 4096, 7).astype(np.float32), device="cuda")
+    q = torch.as_tensor(_configs(env, 4096, 7).astype(np.float32), device="cuda")[None]
     got = capsule.chain_states_free(q, packed, many)
     want = capsule.chain_states_free_reference(q, packed, many)
     assert all(torch.equal(g, w) for g, w in zip(got, want))
@@ -266,4 +273,4 @@ def test_fused_kernel_equals_plain_version_on_the_card():
     too_long = PackedChain(torch.zeros(n_floats, device="cuda"),
                            torch.zeros(n_ints, dtype=torch.int32, device="cuda"), (J, C, dof))
     with pytest.raises(ValueError, match="at most"):
-        capsule.chain_states_free(torch.zeros(1, dof, device="cuda"), too_long, scene)
+        capsule.chain_states_free(torch.zeros(1, 1, dof, device="cuda"), too_long, scene)

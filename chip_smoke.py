@@ -48,46 +48,47 @@ Phases, each bracketed by a progress line with the elapsed seconds:
    scalar flat projection) and of 2,000 (serve sampling), each against its
    plain version. And states 2**-17 to 2**-20 of a segment from
    a contact boundary (problems 2000 and 2001 of kuka7, ur5, kuka14 and
-   snake7, bisected on the CPU): the kernel against its plain version, and,
-   on the CPU's own capsule endpoints, the narrow phase on the card (entry
-   A, its plain version, the pair families) against the CPU. All enforced;
-   the whole oracle on the card against the CPU is reported (FK takes cos
-   and sin from other libraries there).
+   snake7, bisected on the CPU): the kernel against its plain version; on
+   the CPU's own capsule endpoints, the narrow phase on the card (entry
+   A, its plain version, the pair families) against the CPU; and the whole
+   oracle on the card, its own FK included, against the CPU (FK takes
+   glibc's cos and sin and XLA's fused multiply-adds on every device:
+   ``envs/kinematics.py``). All enforced.
 3. timing at the main path's batches, B = 4096 (flat projection), 31 (edge
    check) and 1 (goal state), kuka7 problem 2000: each entry point's
    wrapper against its plain version, and entry B against the composition
    it replaced (torch FK + entry A), CUDA events around 10 calls, median of
-   21 after warm-up, in turns; the bare kernel of each entry, 200 launches
+   21 after warm-up (B = 31 and 1: 3 calls, median of 5), in turns; the bare kernel of each entry, 200 launches
    through its C entry point; the bounds from this run's data. The bare
-   kernels at each width of lane group: kuka7 problem 2000 at B = 1 to
+   kernels at each width of lane group: kuka7 problem 2000 at B = 31 and
    4096, and at B = 4096 kuka7 problem 2004 (6 active boxes) and kuka13
    problem 2000 (C = 42, 8 active boxes). Then seconds
    per stage of eval_gnn (a second pass over the same problems) and the
    device busy share of problem 2000 under torch.profiler.
 4. end to end: ``eval_gnn`` on maze2easy, maze2hard, maze3 and kuka13 at
-   full width, the first problems of each config's JAX rows fixture
+   full width, the first three problems of each config's JAX rows fixture
    (tests/data/torch_port_<config>_jax_rows.json), printed beside them with
    the count that agrees (reported, as in phase 2); every path checked as
    in phase 2; kuka13 must launch ``chain_states_free`` and not
    ``capsules_hit``. Then, for maze2easy and maze3, seconds per stage (a
-   second pass) and the oracle's time and aten ops per call at the main
-   path's batches; for every config but
-   maze2hard, the device busy share of its first problem under
-   torch.profiler.
+   second pass; maze3: its first problem) and the oracle's time and aten
+   ops per call at the main path's batches; maze2easy's device busy share
+   of its first problem under torch.profiler.
 5. end to end: ``eval_gnn`` on ur5, kuka14 and snake7 at full width and at
-   each config's protocol (snake7: t_max 2000, so problem 2004 runs more
-   than one round), three problems each beside the JAX fixture rows, paths
-   checked as in phase 2; each must launch ``capsules_hit`` (entry A, the
+   each config's protocol (snake7: t_max 2000), problems 2000-2001 and
+   snake7's 2004 too (its search takes two rounds, the state carried from
+   round to round, on an oracle through entry A) beside the JAX fixture
+   rows, paths checked as in phase 2; each must launch ``capsules_hit`` (entry A, the
    box family) and not ``chain_states_free``. Then entry A's timing at B =
    4096 on each config's shapes, and for ur5 and snake7 the stage table
-   (snake7: problems 2000 and 2001) and the oracle's ms and aten ops per
-   call; the device busy share of each config's first problem.
+   (problem 2000) and the oracle's ms and aten ops per call; ur5's device
+   busy share of problem 2000.
 
 6. the batched sweep: ``eval_gnn_batched`` at each config's protocol on
    kuka7 (25 lanes, problems 2000-2024), kuka14 (7 lanes, 2000-2007 but
    2006, whose failing first round is an exhaustive search too long for
    the watchdog twice over: ``tools/torch_port_fallback.py`` runs that
-   cell) and maze2easy (25 lanes, 2000-2024). The launch counts, set to 0 just before
+   cell) and maze2easy (10 lanes, 2000-2009). The launch counts, set to 0 just before
    and read just after, must show ``chain_states_free`` on kuka7 and
    ``capsules_hit`` on kuka14. Rows 2000-2004 beside the JAX fixture rows
    (reported); every path checked; the stats of the first lane group;
@@ -102,6 +103,22 @@ Phases, each bracketed by a progress line with the elapsed seconds:
    the composition it fuses (serve_round, host backtrack, model_smooth):
    checks equal, the path within 1e-6 and the smoothed path within 1e-5
    (enforced).
+8. the baselines: ``eval_all`` on Maze_2D_Easy and Kuka_7D, one problem,
+   all five methods (GNN, NEXT, BIT*, RRT*, LazySP) at the drivers'
+   defaults; Kuka_7D's launches must include ``chain_states_free`` (only
+   its GNN method reaches the kernel: its baselines check through the
+   native core and NEXT's FK runs on the host). Then ``eval_bit``,
+   ``eval_lazysp``, ``eval_rrt`` and ``eval_next`` on ur5 problem 2000, and
+   ``explore_batch`` without a model smoother (the oracle smoother) on ur5
+   2000-2001: each must launch ``capsules_hit`` and not
+   ``chain_states_free``, and each smoothed lane must have spent checks
+   (on ur5 they can only go through the device oracle). Every returned
+   path is finite and joins the start to the goal (a tree planner's ends in
+   the goal region), and ur5's paths are collision-free under the oracle
+   on the CPU. Rows beside the JAX fixture rows
+   (tests/data/torch_port_{eval_all,baselines_ur5,oracle_smoother_ur5}_jax_
+   rows.json), reported with the count that agrees; seconds per method and
+   problem.
 
 A watchdog ends a stalled run with every thread's stack and a non-zero
 exit. Without a CUDA device, or outside a checkout of the repository, the
@@ -113,6 +130,7 @@ from __future__ import annotations
 
 import contextlib
 import faulthandler
+import io
 import json
 import math
 import subprocess
@@ -121,13 +139,18 @@ import time
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
-WATCHDOG_SECONDS = 480
+# the card's host sets the pace: the paths are host-bound, and on one H100
+# machine phases 0-7 took 1.8x as long as on another, ur5's oracle 27 ms a
+# call against 10. Phase 8's two T = 1000 runs on ur5 (RRT*, NEXT) took
+# 115-127 s together on the faster hosts; on the slower one the whole script
+# would need some 900 s, inside a 1200 s limit
+WATCHDOG_SECONDS = 900
 REPO = Path(__file__).resolve().parent
 INDEXES = [2000, 2001, 2002, 2003, 2004]
 PHASE4_CONFIGS = ("maze2easy", "maze2hard", "maze3", "kuka13")
 PHASE4_PROBLEMS = 3
 # the configs whose box family goes through entry A, and their problems
-PHASE5_PROBLEMS = {"ur5": [2000, 2001, 2002], "kuka14": [2000, 2001, 2002],
+PHASE5_PROBLEMS = {"ur5": [2000, 2001], "kuka14": [2000, 2001],
                    "snake7": [2000, 2001, 2004]}
 # the configs whose oracle is the fused kernel (entry B)
 FUSED_CONFIGS = ("kuka7", "kuka13")
@@ -143,9 +166,14 @@ NEAR_CONFIGS = ("kuka7", "ur5", "kuka14", "snake7")
 # and times that cell on the card, and the CPU tests hold it
 BATCHED_CELLS = (("kuka7", 25, list(range(2000, 2025))),
                  ("kuka14", 7, [2000, 2001, 2002, 2003, 2004, 2005, 2007]),
-                 ("maze2easy", 25, list(range(2000, 2025))))
+                 ("maze2easy", 10, list(range(2000, 2010))))
 SERVE_CELLS = {"kuka7": list(range(2000, 2010)), "maze2easy": list(range(2000, 2010))}
 SEED = 1234
+# phase 8: the eval_all envs (one problem each), ur5's baseline problem and
+# the oracle smoother's problems
+BASELINE_ENVS = ("Maze_2D_Easy", "Kuka_7D")
+UR5_BASELINE = 2000
+ORACLE_SMOOTHER_PROBLEMS = [2000, 2001]
 # H100 SXM peaks (NVIDIA data sheet): fp32 outside the tensor cores, HBM3
 PEAK_FP32_FLOPS = 67e12
 PEAK_BYTES_PER_S = 3.35e12
@@ -905,9 +933,10 @@ def check_near_contact(config: str, dev) -> int:
     version on the card; and fed the CPU's own capsule endpoints, the
     narrow phase (entry A and its plain version, the pair families) on the
     card equals the CPU, whose fused multiply-adds it forms in float64
-    (``envs/kinematics.py::fma32``). Reported: the whole oracle on the card
-    against the CPU, whose FK takes cos and sin otherwise. Returns the
-    enforced differing decisions (must be 0)."""
+    (``envs/kinematics.py::fma32``); and the whole oracle on the card,
+    its own FK included (glibc's cos and sin, ``kinematics.sincosf32``,
+    and XLA's fused multiply-adds), equals the whole oracle on the CPU.
+    Returns the differing decisions (must be 0)."""
 
     import torch
 
@@ -956,9 +985,9 @@ def check_near_contact(config: str, dev) -> int:
         print(f"  near contact {config} problem {index}: {len(qs)} states at 2**-17..2**-20, "
               f"free={int(cpu_free.sum())}; kernel vs plain version differing={kernel_vs_plain}; "
               f"narrow phase on the CPU's endpoints, card vs CPU ({len(calls)} calls) "
-              f"differing={narrow}; whole oracle card vs CPU (FK's cos and sin differ) "
-              f"differing={oracle_vs_cpu} (reported)", flush=True)
-        n_diff += kernel_vs_plain + narrow
+              f"differing={narrow}; whole oracle card vs CPU differing={oracle_vs_cpu}",
+              flush=True)
+        n_diff += kernel_vs_plain + narrow + oracle_vs_cpu
     return n_diff
 
 
@@ -1042,6 +1071,177 @@ def serve_composition(config: str, env, model, model_s, index: int) -> tuple:
           f"checks {fused} vs {two_call}, path max diff {d_path:.3g}, smoothed path max diff "
           f"{d_smooth:.3g}", flush=True)
     return fused == two_call, d_path, d_smooth
+
+
+def print_kernels(launches: dict, max_abs_err: dict, at_4096: dict) -> None:
+    """The kernels line: both entries' launches on the main paths, error
+    against the plain version, and timing at B = 4096."""
+
+    print(json.dumps({"kernels": [{
+        "name": name,
+        "route": "cuda",
+        "source": "gnn_motion_planning_tpu_torch/csrc/capsules_hit.cu",
+        "replaces": "gnn_motion_planning_tpu/ops/pallas_capsule.py:120",
+        "launches": launches.get(name, 0),
+        "max_abs_err": max_abs_err[name],
+        "ms": at_4096[key],
+        "plain_ms": at_4096[f"{key} plain"],
+        "bound_ms": at_4096[f"{key} bound"],
+        "bound_by": at_4096[f"{key} bound_by"],
+        "library_ms": None,
+    } for name, key in (("capsules_hit", "A"), ("chain_states_free", "B"))]}), flush=True)
+
+
+def quiet(fn, *args, **kwargs):
+    """Call fn with its standard output (the drivers' metric blocks and
+    progress) silenced."""
+
+    with contextlib.redirect_stdout(io.StringIO()):
+        return fn(*args, **kwargs)
+
+
+def check_baseline_path(config: str, env, index: int, path, tree: bool, cpu_env=None) -> None:
+    """A solved problem's path: finite, from the start to the goal (into the
+    goal region for a tree planner and the GNN); with ``cpu_env``, every edge free
+    under that env's oracle on the CPU."""
+
+    import numpy as np
+
+    p = np.asarray(path, np.float64)
+    env.init_new_problem(index)
+    if p.ndim != 2 or p.shape[1] != env.config_dim or not np.isfinite(p).all():
+        raise AssertionError(f"{config} problem {index}: bad path {p.shape}")
+    if not np.allclose(p[0], env.init_state, atol=1e-5):
+        raise AssertionError(f"{config} problem {index}: path does not start at the start")
+    reach = (np.asarray(env.distance(p[-1], env.goal_state)).max() < env.RRT_EPS if tree
+             else np.allclose(p[-1], env.goal_state, atol=1e-5))
+    if not reach:
+        raise AssertionError(f"{config} problem {index}: path does not reach the goal")
+    if cpu_env is not None:
+        cpu_env.init_new_problem(index)
+        blocked = [i for i in range(len(p) - 1) if not cpu_env._edge_fp(p[i], p[i + 1])]
+        if blocked:
+            raise AssertionError(f"{config} problem {index}: edges {blocked} collide on the CPU")
+
+
+def baseline_agree(label: str, got, want) -> bool:
+    """Print a baseline row beside its JAX row: (success, checks, cost)."""
+
+    same = want is not None and got[:2] == tuple(want[:2]) and (
+        (got[2] is None and want[2] is None)
+        or (got[2] is not None and want[2] is not None and abs(got[2] - want[2]) < 1e-6))
+    print(f"  {label}: port {list(got)} jax {None if want is None else list(want)} "
+          f"{'agree' if same else 'DIFFER'}", flush=True)
+    return same
+
+
+def baselines(dev, arm_envs: dict, counted, card: str) -> None:
+    """Phase 8 (module docstring)."""
+
+    from gnn_motion_planning_tpu_torch.api import eval_all as eval_all_mod
+    from gnn_motion_planning_tpu_torch.api import eval_baselines
+    from gnn_motion_planning_tpu_torch.api.eval_gnn import explore_batch, path_cost
+    from gnn_motion_planning_tpu_torch.api.registry import str2env
+
+    data = REPO / "tests" / "data"
+    # the native core (kuka7's and kuka14's host oracle) is built for
+    # x86-64-v4 where the host has AVX-512, as the JAX package's library
+    # was, else for the host, whose vector width can move a host row at a
+    # near-tie (utils/geomcore.py, tools/torch_port_host_rows.py)
+    import platform
+
+    from gnn_motion_planning_tpu_torch.utils.geomcore import FLAGS
+
+    cpuinfo = Path("/proc/cpuinfo").read_text() if Path("/proc/cpuinfo").exists() else ""
+    model = next((line.split(":", 1)[1].strip() for line in cpuinfo.splitlines()
+                  if line.split(":", 1)[0].strip() in ("model name", "CPU part")), "unknown")
+    print(f"  host CPU: {platform.machine()} {model}, avx512f "
+          f"{'yes' if ' avx512f' in cpuinfo else 'no'}; native core: g++ {' '.join(FLAGS)}",
+          flush=True)
+
+    def cost_or_none(c):
+        return None if c is None or not math.isfinite(c) else float(c)
+
+    methods = list(eval_all_mod.METHODS)
+    want = {(r[0], r[1]): tuple(r[2:]) for r in
+            json.loads((data / "torch_port_eval_all_jax_rows.json").read_text())["rows"]}
+    table = {name: (factory, idx) for name, factory, idx in eval_all_mod.default_env_table(dev)}
+    agree = total = 0
+    for env_name in BASELINE_ENVS:
+        t0 = time.perf_counter()
+        result, counts = counted(f"eval_all {env_name}", lambda: quiet(
+            eval_all_mod.eval_all, env_names=[env_name], method_names=methods, n_problems=1,
+            out_path=str(REPO / "build" / "torch_port" / "eval_all_result.p"), device=dev))
+        secs = time.perf_counter() - t0
+        if env_name == "Kuka_7D" and counts["chain_states_free"] <= 0:
+            raise AssertionError("Kuka_7D's GNN method never launched chain_states_free")
+        factory, idx = table[env_name]
+        env = factory()
+        index = int(idx[0])
+        for method in methods:
+            r = result[env_name, method, str(SEED)]
+            got = (int(r[0]), float(r[1]), cost_or_none(r[3]))
+            total += 1
+            agree += baseline_agree(f"{env_name} {method} problem {index} ({r[4]:.3f} s)", got,
+                                    want.get((env_name, method)))
+            if r[0]:
+                # GNN: the smoothed paths (index 6); the others' paths at 5
+                path = r[6][0] if method == "GNN" else r[5][0]
+                check_baseline_path(env_name, env, index, path,
+                                    tree=method in ("GNN", "RRT*", "NEXT"))
+        print(f"  eval_all {env_name}: {len(methods)} methods in {secs:.2f} s ({card})",
+              flush=True)
+    print(f"  eval_all rows agreeing with the JAX package: {agree} of {total}", flush=True)
+
+    env = arm_envs["ur5"][0]
+    cpu_env = str2env("ur5", device="cpu")[0]
+    ur5_want = {r["method"]: (r["success"], r["checks"], r["cost"]) for r in json.loads(
+        (data / "torch_port_baselines_ur5_jax_rows.json").read_text())["rows"]}
+    agree = 0
+    for method in ("bit", "lazysp", "rrt", "next"):
+        t0 = time.perf_counter()
+        r, counts = counted(f"ur5 {method}", lambda: quiet(
+            getattr(eval_baselines, "eval_" + method), "ur5", SEED, env, [UR5_BASELINE]))
+        secs = time.perf_counter() - t0
+        if counts["capsules_hit"] <= 0 or counts["chain_states_free"] != 0:
+            raise AssertionError(f"ur5 {method}: launches {counts}, want capsules_hit only")
+        got = (int(r[0]), float(r[1]), cost_or_none(r[3]))
+        agree += baseline_agree(f"ur5 {method} problem {UR5_BASELINE} ({secs:.2f} s, {card})",
+                                got, ur5_want[method])
+        if r[0]:
+            check_baseline_path("ur5", env, UR5_BASELINE, r[5][0],
+                                tree=method in ("rrt", "next"), cpu_env=cpu_env)
+    print(f"  ur5 baseline rows agreeing with the JAX package: {agree} of 4", flush=True)
+
+    model = arm_envs["ur5"][1]
+    sm_want = {r["index"]: r for r in json.loads(
+        (data / "torch_port_oracle_smoother_ur5_jax_rows.json").read_text())["rows"]}
+    t0 = time.perf_counter()
+    results, counts = counted("ur5 oracle smoother", lambda: explore_batch(
+        env, model, None, ORACLE_SMOOTHER_PROBLEMS, lanes=len(ORACLE_SMOOTHER_PROBLEMS),
+        seed=SEED, **protocol("ur5")))
+    secs = time.perf_counter() - t0
+    if counts["capsules_hit"] <= 0 or counts["chain_states_free"] != 0:
+        raise AssertionError(f"ur5 oracle smoother: launches {counts}, want capsules_hit only")
+    agree = 0
+    for index, res in zip(ORACLE_SMOOTHER_PROBLEMS, results):
+        w = sm_want[index]
+        got = (bool(res["success"]), int(res["c_explore"]), int(res["c_smooth"]))
+        cost = path_cost(res["smooth_path"])
+        same = got == (w["success"], w["c_explore"], w["c_smooth"]) and abs(cost - w["cost"]) < 1e-6
+        agree += same
+        print(f"  ur5 oracle smoother problem {index}: port {list(got) + [cost]} jax "
+              f"{[w['success'], w['c_explore'], w['c_smooth'], w['cost']]} "
+              f"{'agree' if same else 'DIFFER'}", flush=True)
+        if res["success"]:
+            if res["c_smooth"] <= 0:
+                raise AssertionError(f"ur5 problem {index}: the oracle smoother spent no checks")
+            check_baseline_path("ur5", env, index, res["smooth_path"], tree=False,
+                                cpu_env=cpu_env)
+    if not any(r["success"] for r in results):
+        raise AssertionError("ur5 oracle smoother: no problem solved")
+    print(f"  ur5 oracle smoother: {len(results)} problems in {secs:.2f} s, rows agreeing with "
+          f"the JAX package: {agree} of {len(results)} ({card})", flush=True)
 
 
 def main() -> int:
@@ -1191,14 +1391,17 @@ def main() -> int:
         for name, n in counts.items():
             launches[name] = launches.get(name, 0) + n
 
-    launches: dict = {}  # summed over the paths of phases 2, 4, 5, 6 and 7
+    launches: dict = {}  # summed over the paths of phases 2 and 4-8
     with phase("2 eval_gnn kuka7 end to end"):
         main_path("kuka7", env, model, model_s, INDEXES)
 
     with phase("3 timing"):
         env.init_new_problem(INDEXES[0])  # phase 2 left the env on another problem
-        timings = {batch: time_batch(env, batch, card) for batch in (4096, 31, 1)}
-        for batch in (1, 31, 256, 1024, 2048, 4096):
+        # 4096 feeds the kernels line; the small batches take fewer turns
+        timings = {4096: time_batch(env, 4096, card)}
+        timings.update({batch: time_batch(env, batch, card, reps=5, calls=3)
+                        for batch in (31, 1)})
+        for batch in (31, 4096):
             lane_sweep("kuka7 problem 2000", env, batch)
         env.init_new_problem(INDEXES[-1])
         lane_sweep(f"kuka7 problem {INDEXES[-1]}", env)
@@ -1215,25 +1418,25 @@ def main() -> int:
             indexes = [r["index"] for r in fixture_rows(config)][:PHASE4_PROBLEMS]
             main_path(config, env, model, model_s, indexes)
             if config in ("maze2easy", "maze3"):
-                print_stages(config, stage_breakdown(config, env, model, model_s, indexes),
-                             len(indexes), card)
+                staged = indexes[:1] if config == "maze3" else indexes
+                print_stages(config, stage_breakdown(config, env, model, model_s, staged),
+                             len(staged), card)
                 time_oracle(env, card)
-            if config != "maze2hard":  # its problem 0 alone is a 6 s trace
+            if config == "maze2easy":  # one trace a phase (PERF.md keeps the others')
                 device_busy_share(config, env, model, model_s, indexes[0], card)
 
     with phase("5 eval_gnn ur5, kuka14, snake7 end to end"):
         for config, indexes in PHASE5_PROBLEMS.items():
             env, model, model_s = arm_envs[config]
             main_path(config, env, model, model_s, indexes)
-            time_entry_a(config, entry_a_inputs[config], card)
+            time_entry_a(config, entry_a_inputs[config], card, reps=5, calls=3)
             if config in ("ur5", "snake7"):
-                # snake7 2004 alone takes most of a pass: the stage pass
-                # takes the first two problems
-                staged = indexes[:2]
+                staged = indexes[:1]
                 print_stages(config, stage_breakdown(config, env, model, model_s, staged),
                              len(staged), card)
                 time_oracle(env, card)
-            device_busy_share(config, env, model, model_s, indexes[0], card)
+            if config == "ur5":  # one trace a phase
+                device_busy_share(config, env, model, model_s, indexes[0], card)
 
     from gnn_motion_planning_tpu_torch.api.eval_gnn import eval_gnn_batched, eval_gnn_serve
 
@@ -1315,23 +1518,11 @@ def main() -> int:
                 raise AssertionError(
                     f"{config}: serve_full differs from serve_round + backtrack + model_smooth")
 
+    with phase("8 baselines"):
+        baselines(dev, arm_envs, counted, card)
+
     faulthandler.cancel_dump_traceback_later()
-    at_4096 = timings[4096]
-    source = "gnn_motion_planning_tpu_torch/csrc/capsules_hit.cu"
-    replaces = "gnn_motion_planning_tpu/ops/pallas_capsule.py:120"
-    print(json.dumps({"kernels": [{
-        "name": name,
-        "route": "cuda",
-        "source": source,
-        "replaces": replaces,
-        "launches": launches[name],
-        "max_abs_err": max_abs_err[name],
-        "ms": at_4096[key],
-        "plain_ms": at_4096[f"{key} plain"],
-        "bound_ms": at_4096[f"{key} bound"],
-        "bound_by": at_4096[f"{key} bound_by"],
-        "library_ms": None,
-    } for name, key in (("capsules_hit", "A"), ("chain_states_free", "B"))]}), flush=True)
+    print_kernels(launches, max_abs_err, timings[4096])
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

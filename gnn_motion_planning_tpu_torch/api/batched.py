@@ -31,6 +31,7 @@ from gnn_motion_planning_tpu_torch.models.explorer import explorer_forward_lanes
 from gnn_motion_planning_tpu_torch.models.smoother import Smoother, smoother_forward_lanes
 from gnn_motion_planning_tpu_torch.planners.gnn_explore import backtrack
 from gnn_motion_planning_tpu_torch.planners.gnn_smooth import base_chain_edges, pad_to_bucket
+from gnn_motion_planning_tpu_torch.planners.oracle_smoother import joint_smoother
 
 # the adaptive tail chunk never pops more than this in one call
 MAX_CHUNK = 4096
@@ -80,7 +81,7 @@ def _sample_lane(env, seed: int, index: int, batch: int):
     return dict(
         scene=env.device_scene(), v=v, valid=valid, coll=coll,
         goal=np.asarray(env.goal_state, np.float32), toks=toks, tok_mask=tok_mask,
-        sample_checks=env.collision_check_count - c0,
+        sample_checks=env.collision_check_count - c0, rng=env.rng,
     )
 
 
@@ -216,11 +217,6 @@ def explore_batch(env, model, model_s, indexes, smooth: bool = True, batch: int 
     :func:`explore`).
     """
 
-    if smooth and not isinstance(model_s, Smoother):
-        raise NotImplementedError(
-            "smoothing without a model smoother is the oracle smoother "
-            "(planners/oracle_smoother.py), which is not ported yet"
-        )
     planner = get_planner(env)
     d = env.config_dim
     dev = env.device
@@ -261,9 +257,18 @@ def explore_batch(env, model, model_s, indexes, smooth: bool = True, batch: int 
                 paths[li] = [lane[li]["v"][i] for i in backtrack(prev[li], int(node[li]))]
         t_sm = time()
         smooth_paths, smooth_counts, redone = {}, {}, 0
-        if smooth and paths:
+        if smooth and paths and isinstance(model_s, Smoother):
             smooth_paths, smooth_counts, redone = _smooth_lanes(
                 planner, model_s, dict(enumerate(lane)), paths, F, d, dev)
+        elif smooth and paths:
+            # no model smoother: the oracle smoother lane by lane, each on
+            # its own stream where its sampling left it, as the scalar path
+            for li in sorted(paths):
+                env.rng = lane[li]["rng"]
+                env.init_new_problem(int(group[li]))
+                c_sm = env.collision_check_count
+                smooth_paths[li] = joint_smoother(paths[li], env, iter=5)
+                smooth_counts[li] = env.collision_check_count - c_sm
         smooth_time = time() - t_sm
 
         if stats is not None:

@@ -20,9 +20,23 @@ from gnn_motion_planning_tpu_torch.api.planner_bundle import get_planner
 from gnn_motion_planning_tpu_torch.config import problem_rng, set_random_seed
 from gnn_motion_planning_tpu_torch.graphs.knn import build_rgg_edges, k_scaled
 from gnn_motion_planning_tpu_torch.models.explorer import explorer_forward
-from gnn_motion_planning_tpu_torch.models.smoother import smoother_forward
+from gnn_motion_planning_tpu_torch.models.smoother import Smoother, smoother_forward
 from gnn_motion_planning_tpu_torch.planners.gnn_explore import backtrack
 from gnn_motion_planning_tpu_torch.planners.gnn_smooth import base_chain_edges, pad_to_bucket
+from gnn_motion_planning_tpu_torch.planners.oracle_smoother import joint_smoother
+
+
+def progress(indexes, use_tqdm: bool):
+    """``indexes``, under a tqdm bar where asked and tqdm is installed (the
+    card's machine may lack it: then the plain sequence)."""
+
+    if use_tqdm:
+        try:
+            from tqdm import tqdm
+        except ImportError:
+            return indexes
+        return tqdm(indexes)
+    return indexes
 
 
 def path_cost(path) -> float:
@@ -87,9 +101,12 @@ def model_smooth(model_s, free, collided, old_path, env, iter: int = 5):
 
 
 def explore(env, model, model_s, smooth: bool = True, batch: int = 500,
-            t_max: int = 1000, k: int = 30, loop: int = 5):
+            t_max: int = 1000, k: int = 30, smoother: str = "model", loop: int = 5):
     """GNN-guided planning for the env's current problem (reference
-    eval_gnn.py:168-276; the same return payload)."""
+    eval_gnn.py:168-276; the same return payload). ``smoother``: "model"
+    (the smoother GNN ``model_s``), "oracle" (``planners/oracle_smoother.py::
+    joint_smoother``, five rounds, through the env's host oracles) or
+    anything else (the path as found), as JAX api/eval_gnn.py:322-338."""
 
     planner = get_planner(env)
     scene = env.device_scene()
@@ -109,6 +126,8 @@ def explore(env, model, model_s, smooth: bool = True, batch: int = 500,
     ]
     obstacles, obs_mask = env.obs_tokens()
     goal = t(np.asarray(env.goal_state, np.float32))
+    if smooth and smoother == "model" and not isinstance(model_s, Smoother):
+        smoother = "oracle"  # no model smoother for this env: JAX's fallback
     obstacles, obs_mask = t(obstacles), t(obs_mask)
 
     state = None  # (explored, prev, costs, edge_dead) carried across rounds
@@ -171,7 +190,12 @@ def explore(env, model, model_s, smooth: bool = True, batch: int = 500,
     c1 = env.collision_check_count
     t1 = time()
     if success and smooth:
-        smooth_path = model_smooth(model_s, free, collided, path, env)
+        if smoother == "model":
+            smooth_path = model_smooth(model_s, free, collided, path, env)
+        elif smoother == "oracle":
+            smooth_path = joint_smoother(path, env, iter=5)
+        else:
+            smooth_path = path
     c_smooth = env.collision_check_count - c1
 
     if not smooth:
@@ -195,12 +219,14 @@ def explore(env, model, model_s, smooth: bool = True, batch: int = 500,
     }
 
 
-def eval_gnn(str_, seed, env, indexes, model=None, model_s=None, smooth: bool = True,
-             batch: int = 500, t_max: int = 500, k: int = 30, rows=None):
+def eval_gnn(str_, seed, env, indexes, model=None, model_s=None, use_tqdm: bool = False,
+             smooth: bool = True, batch: int = 500, t_max: int = 500, k: int = 30, rows=None,
+             **kwargs):
     """Benchmark sweep with the reference's metric block
     (reference eval_gnn.py:96-145). ``rows``, if given, receives one dict
     per problem: index, success, c_explore, c_smooth, cost, and wall seconds
-    in all, in exploration (sampling included) and in the planning rounds."""
+    in all, in exploration (sampling included) and in the planning rounds.
+    Other keywords (``smoother``, ``loop``) go to :func:`explore`."""
 
     from gnn_motion_planning_tpu_torch.api.registry import smoother_scale, str2models
 
@@ -212,11 +238,11 @@ def eval_gnn(str_, seed, env, indexes, model=None, model_s=None, smooth: bool = 
 
     solutions = []
     paths, smooth_paths = [], []
-    for index in indexes:
+    for index in progress(indexes, use_tqdm):
         # independent per-problem stream, as in the JAX package
         env.rng = problem_rng(seed, int(index))
         env.init_new_problem(int(index))
-        result = explore(env, model, model_s, smooth, batch=batch, t_max=t_max, k=k)
+        result = explore(env, model, model_s, smooth, batch=batch, t_max=t_max, k=k, **kwargs)
         paths.append(result["path"])
         smooth_paths.append(result["smooth_path"])
         solutions.append((

@@ -102,8 +102,16 @@ def _config(name: str) -> tuple:
     return _CONFIGS[name]
 
 
+def _spec_key(name: str) -> str:
+    """The model spec of a name: every maze2 name (also the env's own
+    ``str``, "maze2", which ``eval_all`` passes) takes maze2's (JAX
+    api/registry.py:162-165)."""
+
+    return "maze2" if "maze2" in name else _config(name)[3]
+
+
 def _spec(name: str) -> dict:
-    return _SPECS[_config(name)[3]]
+    return _SPECS[_spec_key(name)]
 
 
 def str2env(name: str, device=None):
@@ -127,7 +135,7 @@ def smoother_scale(name: str, env) -> float:
     """ur5's smoother works in units of its widest joint bound, 2 pi (JAX
     api/registry.py:306); every other config's in the env's own."""
 
-    return float(np.max(env.bound)) if _config(name)[3] == "ur5" else 1.0
+    return float(np.max(env.bound)) if _spec_key(name) == "ur5" else 1.0
 
 
 def _scratch_npz(ckpt: str) -> str:

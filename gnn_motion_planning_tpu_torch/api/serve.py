@@ -27,6 +27,7 @@ from gnn_motion_planning_tpu_torch.envs.env_config import LIMITS
 from gnn_motion_planning_tpu_torch.graphs.knn import k_scaled
 from gnn_motion_planning_tpu_torch.models.smoother import Smoother
 from gnn_motion_planning_tpu_torch.planners.gnn_explore import backtrack
+from gnn_motion_planning_tpu_torch.planners.oracle_smoother import joint_smoother
 
 # the smoothed path's buffer; a longer path falls back to the host pipeline
 L_PAD = 64
@@ -135,15 +136,14 @@ def explore_serve(env, model, model_s, gen: torch.Generator, smooth: bool = True
     t1 = time()
     smooth_path = path
     if smooth:
-        if not isinstance(model_s, Smoother):
-            raise NotImplementedError(
-                "smoothing without a model smoother is the oracle smoother "
-                "(planners/oracle_smoother.py), which is not ported yet"
-            )
-        F = batch + 2
-        free = [v_np[i] for i in range(F)]
-        collided = [v_np[F + i] for i in range(int(n_coll))]
-        smooth_path = _protocol().model_smooth(model_s, free, collided, path, env)
+        if isinstance(model_s, Smoother):
+            F = batch + 2
+            free = [v_np[i] for i in range(F)]
+            collided = [v_np[F + i] for i in range(int(n_coll))]
+            smooth_path = _protocol().model_smooth(model_s, free, collided, path, env)
+        else:
+            # no model smoother: the oracle smoother (JAX api/serve.py:166)
+            smooth_path = joint_smoother(path, env, iter=5)
     return {
         "c_explore": int(c_explore),
         "c_smooth": int(env.collision_check_count - c0 - c_explore),

@@ -21,6 +21,15 @@ class HostRNG:
     def uniform(self, low, high, size=None) -> np.ndarray:
         return self._rs.uniform(low, high, size)
 
+    def randint(self, low, high=None, size=None):
+        return self._rs.randint(low, high, size)
+
+    def choice(self, a, size=None, replace=True):
+        return self._rs.choice(a, size=size, replace=replace)
+
+    def normal(self, loc=0.0, scale=1.0, size=None):
+        return self._rs.normal(loc, scale, size)
+
     def get_state(self):
         return self._rs.get_state()
 

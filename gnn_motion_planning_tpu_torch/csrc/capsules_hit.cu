@@ -50,9 +50,8 @@
 //   of some 550 small PyTorch ops of FK.
 // - Block shape: up to 8 warps (256 threads), fewer when the batch is
 //   small, so that it still spreads over the 132 SMs. `nvcc -Xptxas -v`
-//   (printed by chip_smoke.py phase 0) gives 63 registers a thread and no
-//   spills for each kernel at each width (32 bytes of stack in
-//   chain_states_free: the slow path of cosf and sinf), so four blocks of
+//   (printed by chip_smoke.py phase 0) gives about 64 registers a thread
+//   and no spills for each kernel at each width, so four blocks of
 //   256 fit an SM and B = 4096 runs in one wave, with 8 warps sharing each
 //   block's copy of the chain and the boxes. Above 48 KB of shared memory (hundreds of
 //   boxes) a launch opts in, up to the 227 KB of a block.
@@ -66,13 +65,15 @@
 // Built with -fmad=false: no multiply and add is contracted by the
 // compiler, as in the plain PyTorch versions
 // (ops/capsule.py::capsules_hit_reference, envs/kinematics.py::
-// capsules_world). The narrow phase calls fmaf (one rounding) exactly where
-// XLA's CPU code contracts the JAX package's seg_box_sq_dist (u + t v, the
-// sums of f, f' and the vertex denominator; envs/geometry.py says how they
-// were read), and the plain version forms the same fused multiply-adds
-// (envs/kinematics.py::fma32). FK uses the CUDA math library's cosf and
-// sinf, which PyTorch's own cos and sin call on the card. So the kernel
-// sees the same endpoints and decides the same bits.
+// capsules_world). The narrow phase and FK call fmaf (one rounding)
+// exactly where XLA's CPU code contracts the JAX package's seg_box_sq_dist
+// (u + t v, the sums of f, f' and the vertex denominator;
+// envs/geometry.py says how they were read) and its FK (Rodrigues and the
+// frame products; envs/kinematics.py's docstring), and the plain version
+// forms the same fused multiply-adds (envs/kinematics.py::fma32). FK's
+// cos and sin are glibc's algorithm in double (sincosf_glibc), as the
+// plain version's (envs/kinematics.py::sincosf32). So the kernel sees the
+// same endpoints as the plain version and XLA, and decides the same bits.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -248,21 +249,68 @@ capsules_hit_kernel(const float* __restrict__ p0, const float* __restrict__ p1,
   if (in && (lane & (G - 1)) == 0) out[b] = hit;
 }
 
+// glibc's cosf and sinf (sysdeps/ieee754/flt-32/s_sinf.c, s_cosf.c), which
+// XLA's CPU code calls for the JAX package's FK, in double as there: the
+// same reduction and table as envs/kinematics.py::sincosf32. Every joint
+// limit lies within 9, far inside the |x| < 120 that this reduction
+// covers; a configuration beyond it is out of its limits and never free.
+#define TRIG_HPI_INV 0x1.45f306dc9c883p+23
+#define TRIG_HPI 0x1.921fb54442d18p+0
+#define TRIG_C0 0x1p+0
+#define TRIG_C1 -0x1.ffffffd0c621cp-2
+#define TRIG_C2 0x1.55553e1068f19p-5
+#define TRIG_C3 -0x1.6c087e89a359dp-10
+#define TRIG_C4 0x1.99343027bf8c3p-16
+#define TRIG_S1 -0x1.555545995a603p-3
+#define TRIG_S2 0x1.1107605230bc4p-7
+#define TRIG_S3 -0x1.994eb3774cf24p-13
+
+__device__ __forceinline__ void sincosf_glibc(float y, float* c_out, float* s_out) {
+  if (fabsf(y) < 0x1p-12f) {  // cosf returns 1 and sinf its argument
+    *c_out = 1.f;
+    *s_out = y;
+    return;
+  }
+  if (isinf(y)) {  // glibc: NaN
+    *c_out = *s_out = __int_as_float(0x7fc00000);
+    return;
+  }
+  const double x = (double)y;
+  const long long n = ((long long)(x * TRIG_HPI_INV) + 0x800000) >> 24;
+  const double r = x - (double)n * TRIG_HPI;
+  // sign[n & 3] = 1, -1, -1, 1; for n & 2 the table negates c0..c4
+  const double xs = ((n + 1) & 2) ? -r : r;
+  const double x2 = r * r, x3 = xs * x2, x4 = x2 * x2;
+  const double odd = (xs + x3 * TRIG_S1) + (x3 * x2) * (TRIG_S2 + x2 * TRIG_S3);
+  double even = ((TRIG_C0 + x2 * TRIG_C1) + x4 * TRIG_C2) + (x4 * x2) * (TRIG_C3 + x2 * TRIG_C4);
+  if (n & 2) even = -even;
+  *c_out = (float)((n & 1) ? odd : even);
+  *s_out = (float)((n & 1) ? even : odd);
+}
+
 // The Rodrigues rotation about the unit axis (x, y, z) by angle, row-major
-// into rq[0..8], in the operand order of envs/kinematics.py::_axis_angle.
+// into rq[0..8], with the fused multiply-adds of XLA's compiled
+// _axis_angle (envs/kinematics.py::_rotations).
 __device__ __forceinline__ void rodrigues(const float* ax, float angle, float* rq) {
   const float x = ax[0], y = ax[1], z = ax[2];
-  const float c = cosf(angle), s = sinf(angle);
+  float c, s;
+  sincosf_glibc(angle, &c, &s);
   const float C = 1.f - c;
-  rq[0] = x * x * C + c;
-  rq[1] = x * y * C - z * s;
-  rq[2] = x * z * C + y * s;
-  rq[3] = y * x * C + z * s;
-  rq[4] = y * y * C + c;
-  rq[5] = y * z * C - x * s;
-  rq[6] = z * x * C - y * s;
-  rq[7] = z * y * C + x * s;
-  rq[8] = z * z * C + c;
+  rq[0] = fmaf(x * x, C, c);
+  rq[4] = fmaf(y * y, C, c);
+  rq[8] = fmaf(z * z, C, c);
+  rq[1] = fmaf(x * y, C, -(z * s));
+  rq[5] = fmaf(y * z, C, -(x * s));
+  rq[6] = fmaf(x * z, C, -(y * s));
+  rq[2] = fmaf(y, s, (x * z) * C);
+  rq[3] = fmaf(z, s, (x * y) * C);
+  rq[7] = fmaf(x, s, (y * z) * C);
+}
+
+// a[0] b[0] + a[1] b[s] + a[2] b[2 s] as XLA's dot emitter contracts it:
+// fma(a2, b2, fma(a1, b1, a0 b0)) (envs/kinematics.py::dot3_fused)
+__device__ __forceinline__ float dot3_fused(const float* a, const float* b, int stride) {
+  return fmaf(a[2], b[2 * stride], fmaf(a[1], b[stride], a[0] * b[0]));
 }
 
 // floats of one configuration's shared-memory slice: J + 1 link frames of
@@ -373,20 +421,21 @@ chain_states_free_kernel(const float* __restrict__ qs, int B, int dof,
     for (int e = g; e < 12; e += G) {
       float val;
       if (e < 9) {
-        // R_new[i][k] = ((R @ origin_rot[j]) @ Rq[j])[i][k], in-order sums
+        // R_new[i][k] = ((R @ origin_rot[j]) @ Rq[j])[i][k]
         const int i = e / 3, k = e - 3 * (e / 3);
         const float* Or = origin_rot + 9 * j;
         const float* Rq = rots + 9 * j;
+        // (R @ origin_rot): columns 0 and 1 in-order sums, column 2 fused
         float m[3];
 #pragma unroll
-        for (int n = 0; n < 3; ++n)
+        for (int n = 0; n < 2; ++n)
           m[n] = (R[3 * i] * Or[n] + R[3 * i + 1] * Or[3 + n]) + R[3 * i + 2] * Or[6 + n];
-        val = (m[0] * Rq[k] + m[1] * Rq[3 + k]) + m[2] * Rq[6 + k];
+        m[2] = dot3_fused(R + 3 * i, Or + 2, 3);
+        val = dot3_fused(m, Rq + k, 3);
       } else {
         // t_new[i] = (R @ origin_trans[j])[i] + t[i]
         const int i = e - 9;
-        const float* ot = origin_trans + 3 * j;
-        val = ((R[3 * i] * ot[0] + R[3 * i + 1] * ot[1]) + R[3 * i + 2] * ot[2]) + t[i];
+        val = dot3_fused(R + 3 * i, origin_trans + 3 * j, 1) + t[i];
       }
       frames[12 * (j + 1) + e] = val;
     }
@@ -401,8 +450,8 @@ chain_states_free_kernel(const float* __restrict__ qs, int B, int dof,
     const float* e = cap_p1 + 3 * c;
 #pragma unroll
     for (int i = 0; i < 3; ++i) {
-      p0[3 * c + i] = ((R[3 * i] * a[0] + R[3 * i + 1] * a[1]) + R[3 * i + 2] * a[2]) + t[i];
-      p1[3 * c + i] = ((R[3 * i] * e[0] + R[3 * i + 1] * e[1]) + R[3 * i + 2] * e[2]) + t[i];
+      p0[3 * c + i] = dot3_fused(R + 3 * i, a, 1) + t[i];
+      p1[3 * c + i] = dot3_fused(R + 3 * i, e, 1) + t[i];
     }
     if (want_endpoints && in) {
 #pragma unroll

@@ -33,11 +33,18 @@ from gnn_motion_planning_tpu_torch.envs.base import (
     make_fixed_step_edge_free,
     rejection_sample,
 )
-from gnn_motion_planning_tpu_torch.envs.kinematics import ChainParams, chain_from_model, norm_last
+from gnn_motion_planning_tpu_torch.envs.kinematics import (
+    ChainParams,
+    chain_from_model,
+    link_translations,
+    norm_last,
+    on_cpu,
+)
 from gnn_motion_planning_tpu_torch.envs.urdf import parse_urdf
 from gnn_motion_planning_tpu_torch.ops.capsule import chain_states_free, pack_chain
 from gnn_motion_planning_tpu_torch.utils.assets import asset_path
 from gnn_motion_planning_tpu_torch.utils.geomcore import GeomChain
+from gnn_motion_planning_tpu_torch.utils.timer import Timer, timed
 
 MAX_OBSTACLES = 16
 
@@ -143,13 +150,17 @@ class KukaEnv:
         model = parse_urdf(asset_path(kuka_file))
         self.chain = _apply_calibration(chain_from_model(model, self.device), kuka_file)
         self._set_pose_range(model.pose_range())
+        self.kukaEndEffectorIndex = self.config_dim - 1
         self._native = GeomChain(self.chain.numpy_arrays(), self.RRT_EPS)
 
     def _start(self, device):
         """The host state every env of this family starts with."""
 
         self.device = resolve_device(device)
+        self.dim = 3  # the workspace's
         self.collision_check_count = 0
+        self.collision_point = None
+        self.maps = {}
         self.rng = None
         self.episode_i = 0
         self._native = None  # host sampling oracle; None: the device oracle
@@ -174,6 +185,7 @@ class KukaEnv:
         obstacles, start, goal, path = self.problems[index]
         self.episode_i = (self.episode_i + 1) % len(self.problems)
         self.collision_check_count = 0
+        self.collision_point = None
         self.obstacles = obstacles
         self.init_state = np.asarray(start)
         self.goal_state = np.asarray(goal)
@@ -186,6 +198,7 @@ class KukaEnv:
             else:
                 centers = halfs = np.zeros((0, 3))
             self._native.set_scene(centers, halfs)
+        return self.get_problem()
 
     def device_scene(self) -> BoxScene:
         return self._scene
@@ -232,3 +245,134 @@ class KukaEnv:
         pr = np.array(self.pose_range)
         to_state = np.clip(to_state, pr[:, 0], pr[:, 1])
         return np.sqrt(np.sum((to_state - from_state) ** 2, axis=-1))
+
+    def interpolate(self, from_state, to_state, ratio):
+        pr = np.array(self.pose_range)
+        new_state = from_state + (to_state - from_state) * ratio
+        return np.clip(new_state, pr[:, 0], pr[:, 1])
+
+    def uniform_sample(self, n: int = 1):
+        pr = np.array(self.pose_range)
+        rng = self.rng if self.rng is not None else np.random
+        sample = rng.uniform(pr[:, 0], pr[:, 1], (n, self.config_dim))
+        return sample.reshape(-1) if n == 1 else sample
+
+    # -- the reference env protocol of the baselines (JAX envs/kuka.py:
+    # 282-342, 488-638): host numbers in and out, one oracle call each ------
+
+    def get_problem(self, width: int = 15, index: Optional[int] = None):
+        if index is not None:
+            return self.maps[index]
+        problem = {
+            "map": np.asarray(self.obs_map(width)[1]).astype(float),
+            "init_state": self.init_state,
+            "goal_state": self.goal_state,
+        }
+        self.maps[self.index] = problem
+        return problem
+
+    def obs_map(self, num: int):
+        """num^3 voxel map of the obstacles with the reference's z - 0.4
+        shift (kuka_env.py:145-166): (grid points (num, num, num, 3),
+        occupancy (num, num, num))."""
+
+        resolution = 2.0 / (num - 1)
+        grid = [np.linspace(-1.0, 1.0, num=num) for _ in range(3)]
+        points_pos = np.concatenate([m.reshape(-1, 1) for m in np.meshgrid(*grid)], axis=-1)
+        points_obs = np.zeros(points_pos.shape[0], bool)
+        for obstacle_size, obstacle_base in self.obstacles:
+            lo = (_coerce_vec3(obstacle_base) - _coerce_vec3(obstacle_size)).astype(float)
+            hi = (_coerce_vec3(obstacle_base) + _coerce_vec3(obstacle_size)).astype(float)
+            lo[2] -= 0.4
+            hi[2] -= 0.4
+            bools = []
+            for i in range(3):
+                m = np.zeros(num, bool)
+                m[max(int((lo[i] + 1) / resolution), 0):
+                  min(1 + int((hi[i] + 1) / resolution), 1 + int(2.0 / resolution))] = True
+                bools.append(m)
+            cur = np.concatenate([c.reshape(-1, 1) for c in np.meshgrid(*bools)], axis=-1)
+            points_obs |= np.all(cur, axis=-1)
+        return points_pos.reshape((num, num, num, -1)), points_obs.reshape((num, num, num))
+
+    @property
+    def host_chain(self) -> ChainParams:
+        """The chain on the CPU, for host FK (``get_robot_points``)."""
+
+        if getattr(self, "_host_chain", None) is None:
+            self._host_chain = on_cpu(self.chain)
+        return self._host_chain
+
+    def robot_points(self, configs) -> np.ndarray:
+        """``get_robot_points`` (end point) of many configurations (n, dof):
+        (n, 3 or 6), one FK pass; row i equals ``get_robot_points(configs[i])``."""
+
+        ts = link_translations(self.host_chain, np.asarray(configs).reshape(-1, self.config_dim))
+        return ts[:, 1 + self.kukaEndEffectorIndex] - np.array([0.0, 0.0, 0.4])
+
+    def get_robot_points(self, config, end_point: bool = True):
+        """FK workspace points with the z - 0.4 shift (kuka_env.py:168-180)."""
+
+        if end_point:
+            return tuple(self.robot_points(config)[0])
+        pts = link_translations(self.host_chain, config)[1:] - np.array([0.0, 0.0, 0.4])
+        return [tuple(p) for p in pts[: self.kukaEndEffectorIndex + 1]]
+
+    def in_goal_region(self, state):
+        return bool(self.distance(state, self.goal_state) < self.RRT_EPS
+                    and self._state_fp(state))
+
+    def step(self, state, action=None, new_state=None, check_collision=True):
+        if action is not None:
+            new_state = state + action
+        pr = np.array(self.pose_range)
+        new_state = np.clip(new_state, pr[:, 0], pr[:, 1])
+        action = new_state - state
+        if not check_collision:
+            return new_state, action
+        no_collision = self._edge_fp(state, new_state)
+        done = no_collision and self.in_goal_region(new_state)
+        return new_state, action, no_collision, done
+
+    def _valid_state(self, state):
+        pr = np.array(self.pose_range)
+        return bool((state >= pr[:, 0]).all() and (state <= pr[:, 1]).all())
+
+    def _point_in_free_space(self, state) -> bool:
+        """One configuration, one check: through the native core where the
+        env has one, else the device oracle (float32), as JAX's."""
+
+        if not self._valid_state(state):
+            return False
+        self.collision_check_count += 1
+        free = bool(self._batch_free(np.asarray(state)[None])[0])
+        if not free:
+            self.collision_point = state
+        return free
+
+    @timed(Timer.VERTEX_CHECK)
+    def _state_fp(self, state) -> bool:
+        return self._point_in_free_space(state)
+
+    @timed(Timer.EDGE_CHECK)
+    def _edge_fp(self, state, new_state) -> bool:
+        """One edge under the fixed-step rule, with the reference count:
+        the native core where the env has one (kuka7, kuka13, kuka14), else
+        one call of the device edge oracle (ur5: entry A), read back at
+        once."""
+
+        state = np.asarray(state)
+        new_state = np.asarray(new_state)
+        if not self._valid_state(state) or not self._valid_state(new_state):
+            return False
+        if self._native is not None:
+            free, count = self._native.edge_free(state, new_state)
+        else:
+            qa, qb = (torch.as_tensor(np.asarray(x, np.float32)[None], device=self.device)
+                      for x in (state, new_state))
+            free_t, count_t = self.kernels().edge_free(self._scene, qa, qb)
+            free, count = bool(free_t[0]), int(count_t[0])
+        self.collision_check_count += count
+        if not free:
+            self.collision_point = new_state
+        return free

@@ -19,7 +19,11 @@ import torch
 
 from gnn_motion_planning_tpu_torch.envs.base import EnvKernels, lane_oracle
 from gnn_motion_planning_tpu_torch.envs.geometry import contact_pairs, pair_contacts, vector_tail
-from gnn_motion_planning_tpu_torch.envs.kinematics import chain_from_model, lane_capsules
+from gnn_motion_planning_tpu_torch.envs.kinematics import (
+    chain_from_model,
+    lane_capsules,
+    link_translations,
+)
 from gnn_motion_planning_tpu_torch.envs.kuka import KukaEnv, _apply_calibration, arm_kernels
 from gnn_motion_planning_tpu_torch.envs.urdf import parse_urdf
 from gnn_motion_planning_tpu_torch.ops.capsule import capsules_hit
@@ -64,6 +68,7 @@ class Kuka2Env(KukaEnv):
     obstacle tokens and native-core sampling, for two arms."""
 
     RRT_EPS = 0.5
+    kukaEndEffectorIndex = 6
 
     def __init__(self, kuka_file: str = "kuka_iiwa/model_0.urdf",
                  map_file: str = "maze_files/kukas_14_3000.pkl", device=None):
@@ -81,3 +86,27 @@ class Kuka2Env(KukaEnv):
             self._kernels = make_dual_kernels(
                 self.chain, self.base1, self.base2, self.RRT_EPS, self._k_max())
         return self._kernels
+
+    def _arm_translations(self, configs):
+        """Link translations of both arms, (n, 8, 3) each, for (n, 14)."""
+
+        q = np.asarray(configs).reshape(-1, self.config_dim)
+        dof = self.config_dim // 2
+        return (link_translations(self.host_chain, q[:, :dof], base_trans=self.base1),
+                link_translations(self.host_chain, q[:, dof:], base_trans=self.base2))
+
+    def robot_points(self, configs) -> np.ndarray:
+        a, b = self._arm_translations(configs)
+        k = 1 + self.kukaEndEffectorIndex
+        return np.concatenate([a[:, k], b[:, k]], axis=-1)
+
+    def get_robot_points(self, config, end_point: bool = True):
+        """Both arms' end effectors, no z shift (kuka_2arm_env.py:348-353);
+        else every link point of both arms at z - 0.4 (JAX
+        envs/kuka2.py:178-191)."""
+
+        if end_point:
+            return list(self.robot_points(config)[0])
+        a, b = (t[0, 1:] for t in self._arm_translations(config))
+        shift = np.array([0.0, 0.0, 0.4])
+        return [tuple(p - shift) for p in a[:7]] + [tuple(p - shift) for p in b[:7]]

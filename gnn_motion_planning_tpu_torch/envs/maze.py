@@ -23,9 +23,11 @@ Float32 positions are rounded as the JAX package's compiled functions
 round them: XLA contracts ``c + a * b`` into one fused multiply-add, so
 ``kinematics.fma32`` forms it with one rounding, exactly. Without it a
 midpoint that falls on a cell boundary lands in the other cell now and
-then (cell-centre edges, tests). cos, sin
-and sqrt go through float64 too: torch's float32 versions on the CPU are
-not correctly rounded, the card's are, and both must give the same cells.
+then (cell-centre edges, tests). The stick's cos and sin are glibc's
+``cosf`` and ``sinf``, which XLA's CPU code calls
+(``kinematics.sincosf32``), and sqrt goes through float64: torch's float32
+versions on the CPU are not correctly rounded, the card's are, and both
+must give the same cells.
 """
 
 from __future__ import annotations
@@ -39,8 +41,9 @@ import torch
 from gnn_motion_planning_tpu_torch import resolve_device
 from gnn_motion_planning_tpu_torch.envs.base import BIG, EnvKernels
 from gnn_motion_planning_tpu_torch.envs.env_config import LIMITS, RRT_EPS, STICK_LENGTH
-from gnn_motion_planning_tpu_torch.envs.kinematics import fma32, sum_last
+from gnn_motion_planning_tpu_torch.envs.kinematics import fma32, sincosf32, sum_last
 from gnn_motion_planning_tpu_torch.utils.assets import asset_path
+from gnn_motion_planning_tpu_torch.utils.timer import Timer, timed
 
 # ---------------------------------------------------------------------------
 # Static bisection-tree tables
@@ -235,8 +238,8 @@ def stick_endpoints(q: torch.Tensor):
     (maze_env.py:245-264)."""
 
     # q / 0.4 * pi as XLA folds it: one multiply by the float32 pi / 0.4
-    theta = (q[..., 2] * (np.float32(np.pi) / np.float32(LIMITS[2]))).double()
-    orient = torch.stack([torch.cos(theta), torch.sin(theta)], dim=-1).to(q.dtype)
+    theta = q[..., 2] * (np.float32(np.pi) / np.float32(LIMITS[2]))
+    orient = torch.stack(sincosf32(theta), dim=-1)
     center = q[..., :2]
     half = np.float32(0.5 * STICK_LENGTH)
     return fma32(-half, orient, center), fma32(half, orient, center)
@@ -362,6 +365,7 @@ class MazeEnv:
             self.goal_states = f["goal_states"]
         self.size = self.maps.shape[0]
         self.width = self.maps.shape[1]
+        self.bound = (-1, -1, 1, 1) if dim == 2 else (-1, -1, -0.4, 1, 1, 0.4)
         self.order = list(range(self.size))
         self.episode_i = 0
         self.collision_point = None
@@ -506,6 +510,23 @@ class MazeEnv:
             np.asarray(self.distance(state, self.goal_state)).reshape(-1)[0] < RRT_EPS
         ) and self._state_fp(state)
 
+    def step(self, state, action=None, new_state=None, check_collision=True):
+        if action is not None:
+            new_state = state + action
+        new_state[:2] = new_state[:2].clip(-LIMITS[:2], LIMITS[:2])
+        if self.dim >= 3:
+            if np.abs(new_state[2]) > LIMITS[2]:
+                new_state[2] -= np.sign(new_state[2]) * 2 * LIMITS[2]
+        action = new_state - state
+        if not check_collision:
+            return new_state, action
+        no_collision = self._edge_fp(state, new_state)
+        done = no_collision and self.in_goal_region(new_state)
+        return new_state, action, no_collision, done
+
+    def get_robot_points(self, config):
+        return [config]
+
     # -- collision oracle (numpy host mirror of the device functions) --------
 
     def _transform(self, state):
@@ -546,6 +567,7 @@ class MazeEnv:
         center = np.asarray(state[:2])
         return center - half * orient, center + half * orient
 
+    @timed(Timer.VERTEX_CHECK)
     def _state_fp(self, state):
         state = np.asarray(state)
         if state.size == 2:
@@ -563,4 +585,28 @@ class MazeEnv:
             return self._iterative_check_segment(left, mid) and self._iterative_check_segment(
                 mid, right
             )
+        return True
+
+    @timed(Timer.EDGE_CHECK)
+    def _edge_fp(self, state, new_state):
+        """The host oracle of one edge (JAX envs/maze.py:741-766): both ends,
+        then the 2-D bisection, or for sticks the bisection of every
+        interior stick at the 0.015 step."""
+
+        state, new_state = np.asarray(state), np.asarray(new_state)
+        if not self._valid_state(state) or not self._valid_state(new_state):
+            return False
+        if not self._state_fp(state) or not self._state_fp(new_state):
+            return False
+        if state.size == 2:
+            return self._iterative_check_segment(state, new_state)
+        disp = new_state - state
+        if np.abs(disp[2]) > LIMITS[2]:
+            disp[2] -= np.sign(disp[2]) * 2 * LIMITS[2]
+        d = self.distance(state, new_state)
+        K = int(np.asarray(d).reshape(-1)[0] / 0.015)
+        for k in range(1, K):
+            ca, cb = self._stick_ends(state + k * 1.0 / K * disp)
+            if not self._edge_fp(ca, cb):
+                return False
         return True

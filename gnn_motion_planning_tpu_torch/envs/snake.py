@@ -25,7 +25,12 @@ import torch
 
 from gnn_motion_planning_tpu_torch.envs.base import EnvKernels, lane_oracle
 from gnn_motion_planning_tpu_torch.envs.geometry import contact_pairs, pair_contacts
-from gnn_motion_planning_tpu_torch.envs.kinematics import chain_from_model, lane_capsules
+from gnn_motion_planning_tpu_torch.envs.kinematics import (
+    chain_from_model,
+    joint_angles,
+    lane_capsules,
+    sincosf32,
+)
 from gnn_motion_planning_tpu_torch.envs.kuka import BoxScene, KukaEnv, arm_kernels
 from gnn_motion_planning_tpu_torch.envs.ur5 import pair_mask_from_hops
 from gnn_motion_planning_tpu_torch.envs.urdf import parse_urdf
@@ -62,7 +67,13 @@ def snake_capsules(chain, qs: torch.Tensor):
 
     lanes = qs.dim() == 3
     q = qs if lanes else qs[None]
-    c, s = torch.cos(q[..., 3]), torch.sin(q[..., 3])
+    joints = q[..., 2:6].contiguous()
+    L, B = q.shape[:2]
+    # the yaw and every joint angle in one sincosf32 pass
+    angles = torch.cat([q[..., 3:4], joint_angles(chain, joints.reshape(L * B, 4))
+                        .reshape(L, B, -1)], -1)
+    cos, sin = sincosf32(angles)
+    c, s = cos[..., 0], sin[..., 0]
     zero, one = torch.zeros_like(c), torch.ones_like(c)
     base_rot = torch.stack([
         torch.stack([c, -s, zero], dim=-1),
@@ -70,8 +81,8 @@ def snake_capsules(chain, qs: torch.Tensor):
         torch.stack([zero, zero, one], dim=-1),
     ], dim=-2)
     base_trans = torch.stack([q[..., 0], q[..., 1], torch.full_like(c, HEIGHT)], dim=-1)
-    p0, p1 = lane_capsules(chain, q[..., 2:6].contiguous(), base_rot=base_rot,
-                           base_trans=base_trans)
+    p0, p1 = lane_capsules(chain, joints, base_rot=base_rot, base_trans=base_trans,
+                           trig=(cos[..., 1:], sin[..., 1:]))
     return (p0, p1, chain.cap_r) if lanes else (p0[0], p1[0], chain.cap_r)
 
 
@@ -101,6 +112,7 @@ class SnakeEnv(KukaEnv):
 
     def __init__(self, map_file: str = "maze_files/snakes_15_2_3000.npz", device=None):
         self._start(device)
+        self.dim = 2
         with np.load(asset_path(map_file)) as f:
             self.maps = f["maps"]
             self.init_states = f["init_states"]

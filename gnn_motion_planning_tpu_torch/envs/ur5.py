@@ -27,7 +27,11 @@ import torch
 
 from gnn_motion_planning_tpu_torch.envs.base import EnvKernels, lane_oracle
 from gnn_motion_planning_tpu_torch.envs.geometry import contact_pairs, pair_contacts
-from gnn_motion_planning_tpu_torch.envs.kinematics import chain_from_model, lane_capsules
+from gnn_motion_planning_tpu_torch.envs.kinematics import (
+    chain_from_model,
+    lane_capsules,
+    link_translations,
+)
 from gnn_motion_planning_tpu_torch.envs.kuka import KukaEnv, arm_kernels
 from gnn_motion_planning_tpu_torch.envs.urdf import parse_urdf
 from gnn_motion_planning_tpu_torch.ops.capsule import capsules_hit
@@ -143,6 +147,7 @@ class UR5Env(KukaEnv):
         self._set_pose_range(model.pose_range())
         calibration = json.loads(Path(asset_path("calibration/ur5.json")).read_text())
         self.geom = build_ur5_geom(model, self.chain, calibration)
+        self.tip_index = model.link_order.index("ee_link")
 
     def __str__(self):
         return "ur5"
@@ -151,3 +156,16 @@ class UR5Env(KukaEnv):
         if self._kernels is None:
             self._kernels = make_ur5_kernels(self.chain, self.geom, self.RRT_EPS, self._k_max())
         return self._kernels
+
+    def robot_points(self, configs) -> np.ndarray:
+        ts = link_translations(self.host_chain, np.asarray(configs).reshape(-1, self.config_dim))
+        return ts[:, self.tip_index] - np.array([0.0, 0.0, 0.4])
+
+    def get_robot_points(self, config, end_point: bool = True):
+        """FK workspace points of the tool link, z - 0.4 (JAX
+        envs/ur5.py:244-249)."""
+
+        if end_point:
+            return tuple(self.robot_points(config)[0])
+        pts = link_translations(self.host_chain, config) - np.array([0.0, 0.0, 0.4])
+        return [tuple(p) for p in pts[1 : self.tip_index + 1]]

@@ -2,11 +2,18 @@
 
 Port of gnn_motion_planning_tpu/utils/geomcore.py: one serial chain
 (``GeomChain``) and the dual-arm rig of kuka14 (``GeomDual``). At
-first use it builds ``runtime/geomcore.cpp`` with the JAX binding's flags
-(``g++ -O3 -march=native -shared -fPIC``, so that on one machine both give
-the same sample stream) into ``build/torch_port/``. It never loads the
-committed ``runtime/libgeomcore.so``, whose instructions may not exist on the
-host, and a failed build raises.
+first use it builds ``runtime/geomcore.cpp`` into ``build/torch_port/``
+(``FLAGS``). It never loads the committed ``runtime/libgeomcore.so``, whose
+instructions may not exist on the host, and a failed build raises.
+
+The JAX package loads that committed library: GCC 12.2's build, whose
+instructions are those of ``-march=x86-64-v4``. The vector width g++ picks
+sets the order in which the core sums an edge's squared differences, and so
+an edge's step count at a near-tie, and ``-march=native`` lets it follow the
+host's compiler and tuning (GCC 13.3 on an H100 host picks x86-64-v3's:
+Kuka_7D RRT* 2000 then counts 746 checks against 744;
+``tools/torch_port_host_rows.py``). So on a host with AVX-512 the core is
+built for x86-64-v4, elsewhere for the host.
 """
 
 from __future__ import annotations
@@ -14,12 +21,14 @@ from __future__ import annotations
 import ctypes
 
 import numpy as np
+import torch
 
 from gnn_motion_planning_tpu_torch.utils.assets import REPO
 from gnn_motion_planning_tpu_torch.utils.build import build_shared_library
 
 SRC = REPO / "runtime" / "geomcore.cpp"
-FLAGS = ["-O3", "-march=native", "-shared", "-fPIC"]
+FLAGS = ["-O3", "-march=x86-64-v4" if torch.backends.cpu.get_cpu_capability() == "AVX512"
+          else "-march=native", "-shared", "-fPIC"]
 
 _lib = None
 
@@ -46,6 +55,7 @@ def get_lib():
     lib.geom_new_dual.argtypes = [ctypes.c_int64, d, d]
     lib.geom_free_dual.argtypes = [ctypes.c_int64]
     lib.geom_dual_states_free.argtypes = [ctypes.c_int64, ctypes.c_int64, d, ctypes.c_int, u8, i32]
+    lib.geom_dual_edge_free.argtypes = [ctypes.c_int64, ctypes.c_int64, d, d, u8, i32]
     _lib = lib
     return lib
 
@@ -64,6 +74,18 @@ def _states_free(fn, handle, scene, qs: np.ndarray):
     fn(handle, scene, _ptr(qs, ctypes.c_double), n, _ptr(free, ctypes.c_uint8),
        _ptr(cnt, ctypes.c_int32))
     return free.astype(bool), cnt
+
+
+def _edge_free(fn, handle, scene, qa: np.ndarray, qb: np.ndarray):
+    """(free, n_checks) of the edge qa -> qb under the fixed-step rule."""
+
+    qa = np.ascontiguousarray(qa, np.float64)
+    qb = np.ascontiguousarray(qb, np.float64)
+    free = np.zeros(1, np.uint8)
+    cnt = np.zeros(1, np.int32)
+    fn(handle, scene, _ptr(qa, ctypes.c_double), _ptr(qb, ctypes.c_double),
+       _ptr(free, ctypes.c_uint8), _ptr(cnt, ctypes.c_int32))
+    return bool(free[0]), int(cnt[0])
 
 
 class GeomChain:
@@ -109,16 +131,7 @@ class GeomChain:
         return _states_free(get_lib().geom_states_free, self.handle, self._scene, qs)
 
     def edge_free(self, qa: np.ndarray, qb: np.ndarray):
-        qa = np.ascontiguousarray(qa, np.float64)
-        qb = np.ascontiguousarray(qb, np.float64)
-        free = np.zeros(1, np.uint8)
-        cnt = np.zeros(1, np.int32)
-        get_lib().geom_edge_free(
-            self.handle, self._scene, _ptr(qa, ctypes.c_double),
-            _ptr(qb, ctypes.c_double), _ptr(free, ctypes.c_uint8),
-            _ptr(cnt, ctypes.c_int32),
-        )
-        return bool(free[0]), int(cnt[0])
+        return _edge_free(get_lib().geom_edge_free, self.handle, self._scene, qa, qb)
 
     def __del__(self):
         lib = _lib
@@ -150,6 +163,10 @@ class GeomDual:
     def states_free(self, qs: np.ndarray):
         return _states_free(get_lib().geom_dual_states_free, self.handle,
                             self._single._scene, qs)
+
+    def edge_free(self, qa: np.ndarray, qb: np.ndarray):
+        return _edge_free(get_lib().geom_dual_edge_free, self.handle, self._single._scene,
+                          qa, qb)
 
     def __del__(self):
         # the native rig refers to the chain: free it first

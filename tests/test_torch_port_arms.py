@@ -407,13 +407,11 @@ def kern_pairs(name, tenv, C):
 
 
 # near-contact decisions that differ with each package's own FK, at 2**-17
-# to 2**-20 (2,048 states a problem; ROADMAP.md section 3): FK rounds
-# otherwise (XLA takes cos and sin from a C library call and contracts
-# FK's products; the port does neither), so the endpoints differ
-# in their last bits; fed the same endpoints, no decision differs (a)
-NEAR_RESIDUAL = {("ur5", 2000): 8, ("ur5", 2001): 7, ("kuka14", 2000): 11,
-                 ("kuka14", 2001): 1, ("snake7", 2000): 0, ("snake7", 2001): 4,
-                 ("kuka7", 2000): 10, ("kuka7", 2001): 9}
+# to 2**-20 (2,048 states a problem; ROADMAP.md section 3): none. FK takes
+# glibc's cos and sin (``kinematics.sincosf32``) and forms XLA's fused
+# multiply-adds, so the endpoints are XLA's bit for bit
+NEAR_RESIDUAL = {(name, index): 0 for name in ("ur5", "kuka14", "snake7", "kuka7")
+                 for index in (2000, 2001)}
 
 
 @pytest.mark.parametrize("index", [2000, 2001])
@@ -425,8 +423,9 @@ def test_near_contact_distances_equal_xla(near_envs, index):
     plain narrow phase (``ops/capsule.py``, the kernel's plain version) and
     seg_seg_sq_dist give squared distances bit-equal to XLA's compiled
     functions, in the call forms of the JAX oracles, so the decisions are
-    equal. (b) With each package's own FK, the oracles' decisions: at most
-    the residual NEAR_RESIDUAL (ROADMAP.md section 3) differs."""
+    equal. (b) With each package's own FK (the port's cos and sin are
+    glibc's, its products contracted as XLA's), the oracles' decisions: at
+    most NEAR_RESIDUAL, zero in every case, differs."""
 
     from gnn_motion_planning_tpu_torch.envs.geometry import seg_box_sq_dist, vector_tail
     from gnn_motion_planning_tpu_torch.ops.capsule import _seg_box_sq_dist_rows

@@ -102,12 +102,27 @@ def test_kuka7_protocol_rows_equal_jax_fixture():
 
 
 def test_smoother_without_params_raises():
-    """Smoothing without a model smoother is JAX's oracle smoother, which
-    the port does not have yet: the batched sweep says so."""
+    """Smoothing without a model smoother is JAX's oracle smoother
+    (``planners/oracle_smoother.py``, ported since this test was named for
+    the error the sweep raised before): the batched sweep runs it lane by
+    lane on each lane's own stream, and every problem's result equals the
+    scalar ``explore`` with ``smoother="oracle"``, paths and counts."""
 
-    env, model, _ = _setup("maze3")
-    with pytest.raises(NotImplementedError, match="oracle_smoother"):
-        explore_batch(env, model, None, [2000], lanes=1, seed=SEED, **SMALL)
+    from gnn_motion_planning_tpu_torch.api.eval_gnn import explore
+    from gnn_motion_planning_tpu_torch.config import problem_rng
+
+    env, model, _ = _setup("maze2easy")
+    got = explore_batch(env, model, None, [2000, 2001], lanes=2, seed=SEED, **SMALL)
+    for idx, g in zip([2000, 2001], got):
+        env.rng = problem_rng(SEED, idx)
+        env.init_new_problem(idx)
+        w = explore(env, model, None, True, smoother="oracle", **SMALL)
+        assert (g["success"], g["c_explore"], g["c_smooth"]) == (
+            w["success"], w["c_explore"], w["c_smooth"])
+        for key in ("path", "smooth_path"):
+            assert len(g[key]) == len(w[key])
+            for qa, qb in zip(g[key], w[key]):
+                np.testing.assert_array_equal(np.asarray(qa), np.asarray(qb))
 
 
 @pytest.mark.slow

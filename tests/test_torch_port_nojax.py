@@ -1,7 +1,7 @@
 """The port imports neither JAX nor the JAX package.
 
 Every module of ``gnn_motion_planning_tpu_torch`` and the module-level code
-of ``chip_smoke.py`` and ``tools/torch_port_fallback.py`` are imported in a fresh interpreter in which ``jax``,
+of ``chip_smoke.py`` and of every ``tools/torch_port_*.py`` are imported in a fresh interpreter in which ``jax``,
 ``jaxlib`` and ``gnn_motion_planning_tpu`` cannot be imported.
 """
 
@@ -30,7 +30,9 @@ for name in names:
     importlib.import_module(name)
 import chip_smoke
 sys.path.insert(0, REPO + "/tools")
-import torch_port_fallback
+import glob, os
+for tool in sorted(glob.glob(REPO + "/tools/torch_port_*.py")):
+    importlib.import_module(os.path.basename(tool)[:-3])
 assert not any(m == b or m.startswith(b + ".") for m in sys.modules for b in BLOCKED)
 print(len(names), "modules")
 """
@@ -50,7 +52,7 @@ def test_no_source_line_imports_jax():
 
     pattern = re.compile(r"^\s*(import|from)\s+(jax|jaxlib|gnn_motion_planning_tpu)\b")
     files = list((REPO / "gnn_motion_planning_tpu_torch").rglob("*.py")) + [
-        REPO / "chip_smoke.py", REPO / "tools" / "torch_port_fallback.py"]
+        REPO / "chip_smoke.py"] + sorted((REPO / "tools").glob("torch_port_*.py"))
     offenders = [
         f"{f}:{i}" for f in files
         for i, line in enumerate(f.read_text().splitlines(), 1) if pattern.match(line)

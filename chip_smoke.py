@@ -120,6 +120,23 @@ Phases, each bracketed by a progress line with the elapsed seconds:
    rows.json), reported with the count that agrees; seconds per method and
    problem.
 
+9. training, at the full width of the shipped models, from the committed
+   data (tests/data/torch_port_prm_kuka7_8.pkl, the first 8 kuka7 PRM
+   graphs; the full pickles do not reach the card): ``train_explorer`` on
+   kuka7 (epoch 8, iter 2, batch 8), ``train_smoother`` on kuka7 (epoch 4,
+   data_iter 1, train_iter 2, batch 2; its data pass must launch
+   ``chain_states_free``) and ``train_next("maze2easy", T=40,
+   n_problems=3, train_every=2)``: each loss sequence beside the JAX
+   package's (tests/data/torch_port_training_jax.json; reported), the
+   steps and replay sizes equal to the fixture's (enforced), ms a step in
+   the loop and at steady state (CUDA events). Then the loss and every
+   gradient leaf on the card against the CPU through the same port code,
+   TF32 off (enforced: ``GRAD_RTOL``, ``GRAD_ATOL``): the explorer on the
+   loop's 8 samples at loop 8, the smoother on 8 samples of the replay's
+   paths at loop 4, NEXT's ``Model2D`` on one padded path. Last, each
+   trained module through an npz and back: the forwards bit for bit
+   (deterministic kernels).
+
 A watchdog ends a stalled run with every thread's stack and a non-zero
 exit. Without a CUDA device, or outside a checkout of the repository, the
 script exits non-zero and prints no result. Its last line is
@@ -1244,6 +1261,294 @@ def baselines(dev, arm_envs: dict, counted, card: str) -> None:
           f"the JAX package: {agree} of {len(results)} ({card})", flush=True)
 
 
+# phase 9: the card's gradients against the CPU's, |diff| <= GRAD_RTOL *
+# max|g_leaf| + GRAD_ATOL on every leaf. The backward of the forwards'
+# scatter_reduce and index_put_ adds with atomics on the card, so the last
+# bits can vary from run to run. On an H100 (700 W) the leaves used at most
+# 0.12 of 1e-4 max|g| + 1e-6 (NEXT's hidden.bias, |diff| 2.6e-7); the
+# tolerance leaves some 4x room over that
+GRAD_RTOL, GRAD_ATOL = 5e-5, 5e-7
+SMOOTHER_GRAD_LOOP = 4
+
+
+def timed_steps(module, record: dict):
+    """Wrap ``module.train_step`` (the trainers call it through the module):
+    each call timed with CUDA events, the first call's arguments kept.
+    Returns the wrapped function, to put back."""
+
+    import torch
+
+    inner = module.train_step
+
+    def step(*args):
+        record.setdefault("args", args)
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        loss = inner(*args)
+        end.record()
+        end.synchronize()
+        record.setdefault("ms", []).append(start.elapsed_time(end))
+        return loss
+
+    module.train_step = step
+    return inner
+
+
+def grads_on(module, loss_of, device) -> tuple:
+    """(loss, {name: gradient on the CPU}) of a copy of ``module`` on
+    ``device``, every trained leaf (a leaf the loss does not reach: 0)."""
+
+    import copy
+
+    import torch
+
+    from gnn_motion_planning_tpu_torch.training.optim import trainable_leaves
+
+    m = copy.deepcopy(module).to(device)
+    leaves = trainable_leaves(m)
+    for t in leaves:
+        t.grad = None
+    loss = loss_of(m, device)
+    loss.backward()
+    grads = {k: torch.zeros(t.shape) if t.grad is None else t.grad.detach().cpu()
+             for k, t in m.state_dict(keep_vars=True).items() if t.is_floating_point()}
+    return float(loss.detach()), grads
+
+
+def check_grads(label: str, module, loss_of, dev) -> float:
+    """The loss and every gradient leaf on the card against the CPU through
+    the same port code; raises beyond the tolerance. -> the largest share
+    of its tolerance a leaf used."""
+
+    loss_card, g_card = grads_on(module, loss_of, dev)
+    loss_cpu, g_cpu = grads_on(module, loss_of, "cpu")
+    worst, worst_leaf, bad = 0.0, None, []
+    for name, want in g_cpu.items():
+        scale = float(want.abs().max())
+        diff = float((g_card[name] - want).abs().max())
+        share = diff / (GRAD_RTOL * scale + GRAD_ATOL)
+        if share > 1:
+            bad.append((name, diff, scale))
+        if share >= worst:
+            worst, worst_leaf = share, (name, diff, scale)
+    rel = abs(loss_card - loss_cpu) / max(abs(loss_cpu), 1e-30)
+    print(f"  grads {label}: loss card {loss_card!r} cpu {loss_cpu!r} (rel {rel:.3g}); "
+          f"{len(g_cpu)} leaves, the largest share of the tolerance {worst:.3g}: "
+          f"{worst_leaf[0]} |diff| {worst_leaf[1]:.3g}, max|g| {worst_leaf[2]:.3g}", flush=True)
+    if bad or rel > 1e-5:
+        raise AssertionError(f"{label}: card and CPU gradients differ: loss rel {rel:.3g}, "
+                             f"leaves {bad[:5]}")
+    return worst
+
+
+def steady_step_ms(module, make_optimizer, step, reps: int = 10, warmup: int = 3) -> float:
+    """Median ms of ``step(model, optimizer, leaves)`` on a copy of
+    ``module`` after ``warmup`` steps (CUDA events around each step)."""
+
+    import copy
+
+    import numpy as np
+    import torch
+
+    from gnn_motion_planning_tpu_torch.training.optim import trainable_leaves
+
+    m = copy.deepcopy(module)
+    leaves = trainable_leaves(m)
+    opt = make_optimizer(leaves)
+    times = []
+    for i in range(warmup + reps):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        step(m, opt, leaves)
+        end.record()
+        end.synchronize()
+        if i >= warmup:
+            times.append(start.elapsed_time(end))
+    return float(np.median(times))
+
+
+def report_loop(name: str, losses, replay, want: dict, record: dict, samples: int,
+                card: str) -> None:
+    """A loop's losses beside the JAX package's (reported), its steps and
+    replay size against the fixture's (enforced), its step time."""
+
+    import numpy as np
+
+    rel = [abs(g - w) / max(abs(w), 1e-12) for g, w in zip(losses, want["losses"])]
+    print(f"  {name}: losses port {losses} jax {want['losses']} max rel diff "
+          f"{max(rel) if rel else float('nan'):.3g}", flush=True)
+    if len(losses) != want["steps"] or replay != want["replay"]:
+        raise AssertionError(f"{name}: {len(losses)} losses, replay {replay}; the JAX package "
+                             f"{want['steps']}, replay {want['replay']}")
+    ms = float(np.median(record["ms"]))
+    print(f"  {name}: {len(losses)} losses, replay {replay}, {len(record['ms'])} optimiser "
+          f"steps, {ms:.3f} ms a step in the loop (median, CUDA events, the first steps warm "
+          f"up), {samples / ms * 1e3:.1f} samples/s ({card})", flush=True)
+
+
+def training(dev, counted, card: str) -> None:
+    """Phase 9 (module docstring)."""
+
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from gnn_motion_planning_tpu_torch.api.eval_baselines import str2next
+    from gnn_motion_planning_tpu_torch.api.registry import str2env, str2models, str2name
+    from gnn_motion_planning_tpu_torch.models.convert import load_npz, save_npz
+    from gnn_motion_planning_tpu_torch.models.explorer import Explorer, explorer_forward
+    from gnn_motion_planning_tpu_torch.models.next_model import NextNet, pb_forward, state_forward
+    from gnn_motion_planning_tpu_torch.models.smoother import Smoother, smoother_forward
+    from gnn_motion_planning_tpu_torch.planners.gnn_smooth import pad_to_bucket
+    from gnn_motion_planning_tpu_torch.training import explorer as t_explorer
+    from gnn_motion_planning_tpu_torch.training import next as t_next
+    from gnn_motion_planning_tpu_torch.training import smoother as t_smoother
+
+    fixture = json.loads((REPO / "tests" / "data" / "torch_port_training_jax.json").read_text())
+    settings, jax_runs = fixture["settings"], fixture["runs"]
+    records = {name: {} for name in ("explorer", "smoother", "next")}
+    replays: list = []
+    inner_collect = t_smoother.collect_replay
+
+    def collect(*args, **kwargs):
+        replays.append(inner_collect(*args, **kwargs))
+        return replays[-1]
+
+    saved = [(mod, timed_steps(mod, records[key]))
+             for mod, key in ((t_explorer, "explorer"), (t_smoother, "smoother"), (t_next, "next"))]
+    t_smoother.collect_replay = collect
+    tmp = tempfile.TemporaryDirectory()
+    try:
+        # (b) the three loops at full width, from the committed data
+        spec = settings["explorer_kuka7"]
+        env, explorer, _, _, _ = str2name("kuka7", device=dev)
+        t0 = time.perf_counter()
+        explorer, losses = t_explorer.train_explorer(
+            data_path=str(REPO / spec["data"]), model=explorer, env=env, device=dev,
+            model_path=str(Path(tmp.name) / "explorer.npz"), **spec["kwargs"])
+        print(f"  train_explorer kuka7: {time.perf_counter() - t0:.2f} s", flush=True)
+        report_loop("train_explorer kuka7", losses, None, jax_runs["explorer_kuka7"],
+                    records["explorer"], records["explorer"]["args"][3].v.shape[0], card)
+
+        spec = settings["smoother_kuka7"]
+        env, explorer_s, _, smoother, _ = str2name("kuka7", device=dev)
+        stats: dict = {}
+        t0 = time.perf_counter()
+        (smoother, losses), counts = counted("kuka7 train_smoother", lambda: t_smoother.train_smoother(
+            model_explore=explorer_s, model=smoother, env=env, device=dev, stats=stats,
+            model_path=str(Path(tmp.name) / "smoother.npz"), **spec["kwargs"]))
+        print(f"  train_smoother kuka7: {time.perf_counter() - t0:.2f} s", flush=True)
+        if counts["chain_states_free"] <= 0:
+            raise AssertionError("train_smoother's data pass never launched chain_states_free")
+        report_loop("train_smoother kuka7", losses, stats["replay"], jax_runs["smoother_kuka7"],
+                    records["smoother"], records["smoother"]["args"][3][0].shape[0], card)
+
+        spec = settings["next_maze2easy"]
+        stats = {}
+        t0 = time.perf_counter()
+        next_model, losses = t_next.train_next(
+            "maze2easy", device=dev, stats=stats, model_path=str(Path(tmp.name) / "next.npz"),
+            **spec["kwargs"])
+        print(f"  train_next maze2easy: {time.perf_counter() - t0:.2f} s, BIT* fallbacks "
+              f"{stats['fallback']}", flush=True)
+        report_loop("train_next maze2easy", losses, stats["replay"], jax_runs["next_maze2easy"],
+                    records["next"], 1, card)
+    finally:
+        for mod, inner in saved:
+            mod.train_step = inner
+        t_smoother.collect_replay = inner_collect
+
+    # (a) gradients on the card against the CPU, at full width, TF32 off
+    if torch.backends.cuda.matmul.allow_tf32 or torch.backends.cudnn.allow_tf32:
+        raise AssertionError("TF32 is on")
+    ex = records["explorer"]["args"][3]
+    fresh_explorer, fresh_smoother = str2models("kuka7", dev)
+
+    def explorer_loss(m, device):
+        batch = t_explorer.ExplorerBatch(*(t.to(device) for t in ex))
+        return t_explorer.frontier_cross_entropy(m, batch, 8)
+
+    worst = {"explorer kuka7": check_grads(
+        f"explorer kuka7 (embed 64, {ex.v.shape[0]} samples, N {ex.v.shape[1]}, "
+        f"E {ex.src.shape[1]}, loop 8)", fresh_explorer, explorer_loss, dev)}
+
+    items = [replays[0][i % len(replays[0])] for i in range(8)]
+    l_pad = pad_to_bucket(max(len(it[1]) for it in items))
+    cfg = fresh_smoother.cfg
+    cols = [torch.as_tensor(np.stack(c)) for c in
+            zip(*[t_smoother.build_sample(it, l_pad, cfg.config_size) for it in items])]
+
+    def smoother_loss(m, device):
+        return t_smoother.smoother_mse(m, tuple(c.to(device) for c in cols), SMOOTHER_GRAD_LOOP)
+
+    worst["smoother kuka7"] = check_grads(
+        f"smoother kuka7 (embed 128, batch 8 of the replay's {len(replays[0])} paths, l_pad "
+        f"{l_pad}, loop {SMOOTHER_GRAD_LOOP})", fresh_smoother, smoother_loss, dev)
+
+    nb = records["next"]["args"][4]
+    fresh_next = str2next("maze2easy", str2env("maze2easy", dev)[0])[0].net
+    loss_fn = t_next.make_next_loss()
+
+    def next_loss(m, device):
+        return loss_fn(m, *(t.to(device) for t in nb))
+
+    worst["next maze2"] = check_grads(
+        f"NEXT Model2D maze2 (one path of {int(nb[5].sum())} waypoints, padded to "
+        f"{nb[0].shape[0]})", fresh_next, next_loss, dev)
+    print(f"  grads: tolerance |diff| <= {GRAD_RTOL:g} max|g| + {GRAD_ATOL:g}; the largest "
+          f"share of it {json.dumps(worst)}", flush=True)
+
+    # a step at steady state: the captured batches, 3 warm-up steps, then 10
+    from gnn_motion_planning_tpu_torch.training.optim import adam, sgd_decayed
+
+    s_batch, s_loop = records["smoother"]["args"][3], records["smoother"]["args"][4]
+    e_loop = records["explorer"]["args"][4]
+    for label, module, make_opt, step, samples in (
+            (f"train_explorer kuka7 (8 samples, loop {e_loop})", fresh_explorer, adam,
+             lambda m, o, l: t_explorer.train_step(m, o, l, ex, e_loop), ex.v.shape[0]),
+            (f"train_smoother kuka7 (2 samples, l_pad {s_batch[0].shape[1]}, loop {s_loop})",
+             fresh_smoother, sgd_decayed,
+             lambda m, o, l: t_smoother.train_step(m, o, l, s_batch, s_loop), 2),
+            ("train_next maze2 (one path)", fresh_next, adam,
+             lambda m, o, l: t_next.train_step(loss_fn, m, o, l, nb), 1)):
+        ms = steady_step_ms(module, make_opt, step)
+        print(f"  steady step {label}: {ms:.3f} ms (median of 10 after 3, CUDA events), "
+              f"{samples / ms * 1e3:.1f} samples/s ({card})", flush=True)
+
+    # (c) a checkpoint round trip: npz out and back, the forward bit for bit;
+    # deterministic kernels (the segment sums' atomics would otherwise
+    # round differently from call to call; warn_only: cuBLAS is left as is)
+    import warnings
+
+    with torch.no_grad(), warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        torch.use_deterministic_algorithms(True, warn_only=True)
+        path = Path(tmp.name) / "round_trip.npz"
+        save_npz(explorer, path)
+        back = load_npz(Explorer(explorer.cfg), path).to(dev)
+        one = [t[0] for t in ex[:8]]
+        same = {"explorer": torch.equal(explorer_forward(explorer, *one, loop=8),
+                                        explorer_forward(back, *one, loop=8))}
+        save_npz(smoother, path)
+        back_s = load_npz(Smoother(smoother.cfg), path).to(dev)
+        args = [c[0].to(dev) for c in cols]
+        s_args = (*args[:4], int(args[4]), *args[5:8])
+        same["smoother"] = torch.equal(smoother_forward(smoother, *s_args, loop=2),
+                                       smoother_forward(back_s, *s_args, loop=2))
+        net = next_model.net
+        save_npz(net, path)
+        back_n = load_npz(NextNet(net.cfg, net.attention_g.mlp[0].in_features), path).to(dev)
+        same["next"] = torch.equal(state_forward(net, nb[0], pb_forward(net, nb[2], nb[1])),
+                                   state_forward(back_n, nb[0], pb_forward(back_n, nb[2], nb[1])))
+        torch.use_deterministic_algorithms(False)
+    tmp.cleanup()
+    print(f"  checkpoint round trip, the forwards bit for bit equal: {json.dumps(same)}",
+          flush=True)
+    if not all(same.values()):
+        raise AssertionError("a trained module and its npz round trip differ")
+
+
 def main() -> int:
     faulthandler.dump_traceback_later(WATCHDOG_SECONDS, exit=True)
     import torch
@@ -1520,6 +1825,9 @@ def main() -> int:
 
     with phase("8 baselines"):
         baselines(dev, arm_envs, counted, card)
+
+    with phase("9 training"):
+        training(dev, counted, card)
 
     faulthandler.cancel_dump_traceback_later()
     print_kernels(launches, max_abs_err, timings[4096])

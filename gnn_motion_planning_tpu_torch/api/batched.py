@@ -198,6 +198,7 @@ def _smooth_lanes(planner, model_s, lanes: dict, paths: dict, F: int, d: int, de
     return smooth_paths, smooth_counts, redone
 
 
+@torch.no_grad()
 def explore_batch(env, model, model_s, indexes, smooth: bool = True, batch: int = 500,
                   t_max: int = 500, k: int = 30, loop: int = 5, lanes: int = 25,
                   chunk: int = 64, seed: int = 1234, stats: list | None = None):

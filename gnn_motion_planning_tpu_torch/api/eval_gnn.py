@@ -58,6 +58,7 @@ def _smooth_iterations(model_s, project, scene, path, args, n_path, iters):
     return path, count, overflow
 
 
+@torch.no_grad()
 def model_smooth(model_s, free, collided, old_path, env, iter: int = 5):
     """GNN smoothing driver (reference smoother.py:233-246); ``free`` and
     ``collided`` are truncated to 500 samples each like the reference."""
@@ -100,6 +101,7 @@ def model_smooth(model_s, free, collided, old_path, env, iter: int = 5):
     return [out[i] for i in range(L)]
 
 
+@torch.no_grad()
 def explore(env, model, model_s, smooth: bool = True, batch: int = 500,
             t_max: int = 1000, k: int = 30, smoother: str = "model", loop: int = 5):
     """GNN-guided planning for the env's current problem (reference

@@ -63,6 +63,7 @@ class Planner:
 
     # -- the batched sweep's redo (api/batched.py) --------------------------
 
+    @torch.no_grad()
     def smooth_full(self, model_s, scene, path, path_mask, env_nodes, env_valid, n_free: int,
                     base_src, base_dst, base_alive, n_path: int, iters: int = 5, loop: int = 1):
         """Every smoothing iteration of one path at the full edge budget (JAX
@@ -79,6 +80,7 @@ class Planner:
 
     # -- serving (api/serve.py) ---------------------------------------------
 
+    @torch.no_grad()
     def serve_round(self, model, scene, draws, init, goal, obstacles, obs_mask,
                     batch: int, k1: int, loop: int):
         """Rejection sampling from ``draws`` (M, d), then the RGG build, the
@@ -130,6 +132,7 @@ class Planner:
         )
         return res, v, prefix_len, n_coll, enough
 
+    @torch.no_grad()
     def backtrack_smooth(self, model_s, scene, v, res, n_coll, F: int, l_pad: int,
                          smooth_iters: int, loop_s: int, cheap: bool = True):
         """The path backtrack through the search tree's parents on the
@@ -182,6 +185,7 @@ class Planner:
             overflow |= ovf
         return raw_path, path, n_path, fits and not overflow, count
 
+    @torch.no_grad()
     def serve_full(self, model, model_s, scene, draws, init, goal, obstacles, obs_mask,
                    batch: int, k1: int, loop: int, loop_s: int, l_pad: int, smooth_iters: int):
         """The whole problem: :meth:`serve_round`, then

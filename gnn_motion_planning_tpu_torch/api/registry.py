@@ -1,17 +1,23 @@
 """Name registries (port of gnn_motion_planning_tpu/api/registry.py):
-the same names, test index ranges, model widths, checkpoint paths and
-per-config protocol overrides, for all eight configurations."""
+the same names, test index ranges, model widths, checkpoint paths, training
+data and per-config protocol overrides, for all eight configurations.
+
+``GMP_WEIGHTS=scratch`` in the environment loads every config's
+from-scratch-trained weights (``assets/weights_jax/*_scratch.npz``) where
+they exist, as the JAX package does (api/registry.py:190-197).
+"""
 
 from __future__ import annotations
 
+import os
 from pathlib import Path
 
 import numpy as np
 
 from gnn_motion_planning_tpu_torch import resolve_device
 from gnn_motion_planning_tpu_torch.models.convert import load_checkpoint, load_flat, load_npz, read_checkpoint
-from gnn_motion_planning_tpu_torch.models.explorer import Explorer, ExplorerConfig
-from gnn_motion_planning_tpu_torch.models.smoother import Smoother, SmootherConfig
+from gnn_motion_planning_tpu_torch.models.explorer import Explorer, ExplorerConfig, init_explorer_params
+from gnn_motion_planning_tpu_torch.models.smoother import Smoother, SmootherConfig, init_smoother_params
 from gnn_motion_planning_tpu_torch.utils.assets import REPO, asset_path
 
 _SPECS = {
@@ -20,30 +26,35 @@ _SPECS = {
         explorer_ckpt="data/weights/weights_maze.pt",
         smoother=dict(workspace_size=2, config_size=2, embed_size=128, obs_size=6),
         smoother_ckpt="data/weights/smooth_2d_attv3.pt",
+        data="data/pkl/maze_prm_4000.pkl",
     ),
     "maze3": dict(
         explorer=dict(workspace_size=2, config_size=3, embed_size=32, obs_size=2),
         explorer_ckpt="data/weights/weights_maze_3.pt",
         smoother=dict(workspace_size=3, config_size=3, embed_size=128, obs_size=6),
         smoother_ckpt="data/weights/smooth_3d_attv3.pt",
+        data="data/pkl/maze_prm_3.pkl",
     ),
     "kuka7": dict(
         explorer=dict(workspace_size=3, config_size=7, embed_size=64, obs_size=6),
         explorer_ckpt="data/weights/weights_kuka.pt",
         smoother=dict(workspace_size=3, config_size=7, embed_size=128, obs_size=6),
         smoother_ckpt="data/weights/smooth_7d_attv3.pt",
+        data="data/pkl/kuka_prm_4000.pkl",
     ),
     "kuka13": dict(
         explorer=dict(workspace_size=3, config_size=13, embed_size=32, obs_size=6),
         explorer_ckpt="data/weights/weights_kuka_13.pt",
         smoother=dict(workspace_size=3, config_size=13, embed_size=128, obs_size=6),
         smoother_ckpt="data/weights/smooth_13d_attv3.pt",
+        data="data/pkl/kuka_prm_13.pkl",
     ),
     "ur5": dict(
         explorer=dict(workspace_size=3, config_size=6, embed_size=32, obs_size=6),
         explorer_ckpt="data/weights/weights_ur5.pt",
         smoother=dict(workspace_size=3, config_size=6, embed_size=128, obs_size=6),
         smoother_ckpt="data/weights/smooth_ur5_attv3.pt",
+        data="data/pkl/ur5_prm_3000.pkl",
     ),
     "snake7": dict(
         explorer=dict(workspace_size=3, config_size=7, embed_size=32, obs_size=2),
@@ -54,12 +65,14 @@ _SPECS = {
         explorer_ft="weights_snake_ft.npz",
         smoother=dict(workspace_size=3, config_size=7, embed_size=128, obs_size=6),
         smoother_ckpt="data/weights/smooth_snake_attv3.pt",
+        data="data/pkl/snake_prm_3000.pkl",
     ),
     "kuka14": dict(
         explorer=dict(workspace_size=3, config_size=14, embed_size=32, obs_size=6),
         explorer_ckpt="data/weights/kuka_14.pt",
         smoother=dict(workspace_size=3, config_size=14, embed_size=128, obs_size=6),
         smoother_ckpt="data/weights/smooth_14d_attv3.pt",
+        data="data/pkl/kuka_prm_14.pkl",
     ),
 }
 
@@ -145,6 +158,21 @@ def _scratch_npz(ckpt: str) -> str:
     return f"weights_jax/{Path(ckpt).stem.replace('_attv3', '')}_scratch.npz"
 
 
+_INIT_SEED = 1234  # the trainers' default seed (JAX training/*.py)
+
+
+def _prefer_scratch() -> bool:
+    return os.environ.get("GMP_WEIGHTS", "").lower() == "scratch"
+
+
+def _scratch(ckpt: str):
+    """The from-scratch twin's path under ``GMP_WEIGHTS=scratch`` where it
+    exists, else None."""
+
+    path = REPO / "assets" / _scratch_npz(ckpt)
+    return path if _prefer_scratch() and path.exists() else None
+
+
 def _load_smoother(spec: dict, scale: float) -> Smoother:
     """The smoother of a spec. Where the shipped checkpoint is the legacy
     architecture (no ``node_code.0.*``: maze3's ``smooth_3d_att.pt``), the
@@ -154,45 +182,76 @@ def _load_smoother(spec: dict, scale: float) -> Smoother:
     not ported."""
 
     smoother = Smoother(SmootherConfig(scale=scale, **spec["smoother"]))
+    scratch = _scratch(spec["smoother_ckpt"])
+    if scratch is not None:
+        return load_npz(smoother, scratch)
     flat = read_checkpoint(spec["smoother_ckpt"])
     if any(k.startswith("node_code.0.") for k in flat):
         return load_flat(smoother, flat)
     return load_npz(smoother, asset_path(_scratch_npz(spec["smoother_ckpt"])))
 
 
-def _load_explorer(spec: dict) -> Explorer:
+def _explorer_ckpt(spec: dict, use_obstacle: bool) -> str:
+    """The explorer checkpoint; the obstacle-free ablation's is the
+    ``_pure.pt`` beside it (JAX api/registry.py:302-304)."""
+
+    ckpt = spec["explorer_ckpt"]
+    return ckpt if use_obstacle else ckpt.replace(".pt", "_pure.pt")
+
+
+def _load_explorer(spec: dict, use_obstacle: bool = True) -> Explorer:
     """The explorer of a spec: the shipped checkpoint, or the fine-tuned
     ``explorer_ft`` in ``assets/weights_jax/`` where the spec names one. A
     missing fine-tuned file raises: the JAX package would quietly take the
-    shipped checkpoint, another planner."""
+    shipped checkpoint, another planner. A missing ``_pure.pt`` raises, as
+    in the JAX package."""
 
-    explorer = Explorer(ExplorerConfig(**spec["explorer"]))
-    if "explorer_ft" not in spec:
-        return load_checkpoint(explorer, spec["explorer_ckpt"])
+    explorer = Explorer(ExplorerConfig(use_obstacles=use_obstacle, **spec["explorer"]))
+    ckpt = _explorer_ckpt(spec, use_obstacle)
+    scratch = _scratch(ckpt)
+    if scratch is not None:
+        return load_npz(explorer, scratch)
+    if "explorer_ft" not in spec or not use_obstacle:
+        return load_checkpoint(explorer, ckpt)
     path = REPO / "assets" / "weights_jax" / spec["explorer_ft"]
     if not path.exists():
         raise FileNotFoundError(f"fine-tuned explorer weights {path} are missing")
     return load_npz(explorer, path)
 
 
-def str2models(name: str, device=None, scale: float = 1.0):
+def str2models(name: str, device=None, scale: float = 1.0, use_obstacle: bool = True,
+               load: bool = True):
     """(explorer, smoother) modules on ``device``, with the shipped weights;
-    the smoother works in units of ``scale`` (``smoother_scale``)."""
+    the smoother works in units of ``scale`` (``smoother_scale``). With
+    ``load=False`` both are freshly initialised (``init_explorer_params``,
+    ``init_smoother_params``, seeded by the trainers' default seed), for
+    training from scratch."""
 
     spec = _spec(name)
     device = resolve_device(device)
-    explorer = _load_explorer(spec)
-    smoother = _load_smoother(spec, scale)
+    if load:
+        explorer = _load_explorer(spec, use_obstacle)
+        smoother = _load_smoother(spec, scale)
+    else:
+        explorer = init_explorer_params(
+            Explorer(ExplorerConfig(use_obstacles=use_obstacle, **spec["explorer"])), _INIT_SEED)
+        smoother = init_smoother_params(
+            Smoother(SmootherConfig(scale=scale, **spec["smoother"])), _INIT_SEED)
     return explorer.to(device).eval(), smoother.to(device).eval()
 
 
-def str2name(name: str, device=None):
-    """(env, explorer, explorer_ckpt, smoother, smoother_ckpt) —
+def str2name(name: str, device=None, get_data: bool = False, use_obstacle: bool = True,
+             load: bool = True):
+    """(env, explorer, explorer_ckpt, smoother, smoother_ckpt[, data]) —
     reference str2name.py:11-81. The env is ``str2env``'s (maze2hard gets
     the hard maps; the JAX package's ``str2name`` builds the default maze2
-    maps for any maze2 name)."""
+    maps for any maze2 name). ``get_data`` appends the config's PRM
+    training data (an asset path); ``load=False`` gives freshly
+    initialised models."""
 
     spec = _spec(name)
     env, _ = str2env(name, device)
-    explorer, smoother = str2models(name, env.device, smoother_scale(name, env))
-    return env, explorer, spec["explorer_ckpt"], smoother, spec["smoother_ckpt"]
+    explorer, smoother = str2models(name, env.device, smoother_scale(name, env),
+                                    use_obstacle=use_obstacle, load=load)
+    out = (env, explorer, _explorer_ckpt(spec, use_obstacle), smoother, spec["smoother_ckpt"])
+    return out + (spec["data"],) if get_data else out

@@ -72,6 +72,7 @@ def draw(env, gen: torch.Generator, n: int) -> torch.Tensor:
     return pr[:, 0] + u * (pr[:, 1] - pr[:, 0])
 
 
+@torch.no_grad()
 def explore_serve(env, model, model_s, gen: torch.Generator, smooth: bool = True,
                   batch: int = 500, k: int = 30, loop: int = 5, oversample: int = OVERSAMPLE,
                   draws: torch.Tensor | None = None):

@@ -239,6 +239,18 @@ class KukaEnv:
         free, _ = self.kernels().batch_state_free(self._scene, qs)
         return free.cpu().numpy()
 
+    def set_random_init_goal(self):
+        """A fresh start and goal, two distinct free samples (JAX
+        envs/kuka.py:459; ur5 and kuka14 inherit it). The smoother trainer
+        draws them from its second data pass on."""
+
+        while True:
+            points = self.sample_n_points(n=2)
+            init, goal = points[0], points[1]
+            if np.sum(np.abs(init - goal)) != 0:
+                break
+        self.init_state, self.goal_state = init, goal
+
     # -- metric (host) -------------------------------------------------------
 
     def distance(self, from_state, to_state):

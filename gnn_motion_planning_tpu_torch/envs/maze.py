@@ -484,6 +484,22 @@ class MazeEnv:
             self.collision_check_count = saved
         return out
 
+    def sample_empty_points(self):
+        while True:
+            point = self.uniform_sample()
+            if self._accept(point):
+                return point
+
+    def set_random_init_goal(self):
+        """A fresh start and goal, two distinct free samples (JAX
+        envs/maze.py:594)."""
+
+        while True:
+            init, goal = self.sample_empty_points(), self.sample_empty_points()
+            if np.sum(np.abs(init - goal)) != 0:
+                break
+        self.init_state, self.goal_state = init, goal
+
     # -- metric geometry -----------------------------------------------------
 
     def distance(self, from_state, to_state):

@@ -144,6 +144,14 @@ class SnakeEnv(KukaEnv):
         self.obstacles = np.argwhere(self.map == 1) / self.map.shape[0] - 0.5
         self._scene = make_snake_scene(self.map, self.device)
 
+    def set_random_init_goal(self):
+        """Not ported: the JAX package's (envs/snake.py:589) samples through
+        snake7's own host protocol, which the port lacks; the arm version
+        would draw another stream."""
+
+        raise NotImplementedError(
+            "SnakeEnv.set_random_init_goal (JAX envs/snake.py:589) is not ported")
+
     def kernels(self) -> EnvKernels:
         if self._kernels is None:
             self._kernels = make_snake_kernels(

@@ -7,7 +7,9 @@ module does not use are ignored, a key it needs and the file lacks raises).
 ``params_from_numpy`` takes the JAX package's nested numpy parameters, as
 its ``load_params`` returns them, into the same modules; ``load_npz`` reads
 the flat ``.npz`` files of ``assets/weights_jax/`` (scratch-trained and
-fine-tuned weights) into them.
+fine-tuned weights) into them. ``to_flat`` and ``save_npz`` go the other
+way: a module's floats under the same names, which is the JAX package's
+flat npz format (its ``_flatten``), so weights the port trains load there.
 """
 
 from __future__ import annotations
@@ -30,6 +32,34 @@ def flatten(tree: dict, prefix: str = "") -> dict:
         else:
             out[name] = v
     return out
+
+
+def nest(flat: dict) -> dict:
+    """{dotted name: leaf} -> nested dict (the JAX package's ``_nest``)."""
+
+    tree: dict = {}
+    for key, value in flat.items():
+        parts = key.split(".")
+        node = tree
+        for p in parts[:-1]:
+            node = node.setdefault(p, {})
+        node[parts[-1]] = value
+    return tree
+
+
+def to_flat(module: nn.Module) -> dict:
+    """{dotted name: float32 numpy array} of every floating parameter and
+    buffer of ``module`` (BatchNorm's running statistics included, as the
+    JAX package keeps them in its parameter tree)."""
+
+    return {k: v.detach().cpu().numpy().astype(np.float32)
+            for k, v in module.state_dict().items() if v.is_floating_point()}
+
+
+def save_npz(module: nn.Module, path) -> None:
+    """Write ``module``'s floats as a flat ``.npz`` of dotted names."""
+
+    np.savez(path, **to_flat(module))
 
 
 def load_flat(module: nn.Module, flat: dict) -> nn.Module:

@@ -5,6 +5,9 @@ Obstacle cross-attention on node/edge free-codes, a goal-seeded latent,
 ``loop`` weight-tied max-aggregation MPNN passes, and a per-directed-edge
 policy score scattered into a dense (N, N) matrix at ``[dst, src]`` (the
 reference's orientation quirk), dead edges dropped.
+
+The forward carries gradients (the trainer's loss goes through it); the
+planners call it under ``torch.no_grad()``.
 """
 
 from __future__ import annotations
@@ -14,7 +17,8 @@ from typing import NamedTuple
 import torch
 from torch import nn
 
-from gnn_motion_planning_tpu_torch.models.mlp import layer_norm, linear, mlp2, mlp3, seq2
+from gnn_motion_planning_tpu_torch.models.mlp import (
+    init_default_, layer_norm, linear, mlp2, mlp3, seq2)
 from gnn_motion_planning_tpu_torch.ops.segment import masked_segment_max
 
 _NEG = -1e9
@@ -85,6 +89,18 @@ class Explorer(nn.Module):
         )
 
 
+@torch.no_grad()
+def init_explorer_params(model: Explorer, seed: int) -> Explorer:
+    """``model`` with fresh weights for training from scratch (JAX
+    models/explorer.py:47-98): torch's default initialisation from a
+    generator seeded by ``seed``, and ``goal_encoder`` U(0, 1)."""
+
+    gen = torch.Generator(device=model.goal_encoder.device).manual_seed(int(seed))
+    init_default_(model, gen)
+    model.goal_encoder.uniform_(0.0, 1.0, generator=gen)
+    return model
+
+
 def _attention(p: _Attention, map_code, obs_code, obs_mask, temperature):
     """Cross-attention of map tokens over obstacle tokens + a self token,
     padding masked out of the softmax."""
@@ -136,7 +152,6 @@ def _mpnn_max(p: _Process, x, src, dst, e_alive, edge_attr):
     return linear(p.lin_1, torch.cat([x, agg], dim=-1))
 
 
-@torch.no_grad()
 def explorer_forward(
     model: Explorer,
     v: torch.Tensor,  # (N, d) padded node configs

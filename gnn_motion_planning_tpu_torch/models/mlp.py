@@ -50,5 +50,28 @@ def batch_norm_eval(m: nn.BatchNorm1d, x: torch.Tensor, eps: float = 1e-5) -> to
     return (x - m.running_mean) / torch.sqrt(m.running_var + eps) * m.weight + m.bias
 
 
+@torch.no_grad()
+def init_default_(module: nn.Module, gen: torch.Generator) -> nn.Module:
+    """torch's default initialisation of every layer of ``module``, drawn
+    from ``gen``: ``nn.Linear`` weight and bias U(+-1/sqrt(fan_in)),
+    LayerNorm and BatchNorm at identity (BatchNorm's running statistics at
+    mean 0, variance 1). The JAX package's ``_init_linear`` draws the same
+    distribution (JAX models/explorer.py:29-44), not the same numbers."""
+
+    for m in module.modules():
+        if isinstance(m, nn.Linear):
+            bound = 1.0 / m.in_features**0.5
+            m.weight.uniform_(-bound, bound, generator=gen)
+            if m.bias is not None:
+                m.bias.uniform_(-bound, bound, generator=gen)
+        elif isinstance(m, (nn.LayerNorm, nn.BatchNorm1d)):
+            m.weight.fill_(1.0)
+            m.bias.fill_(0.0)
+            if isinstance(m, nn.BatchNorm1d):
+                m.running_mean.fill_(0.0)
+                m.running_var.fill_(1.0)
+    return module
+
+
 def seq2(n_in: int, n_hidden: int, n_out: int) -> nn.Sequential:
     return nn.Sequential(nn.Linear(n_in, n_hidden), nn.ReLU(), nn.Linear(n_hidden, n_out))

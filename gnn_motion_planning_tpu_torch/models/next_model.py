@@ -14,6 +14,9 @@ The modules are ``nn.Module``s whose dotted names are the shipped
 ``torch.nn.functional`` calls and matmuls, written out as the JAX package
 writes them (convolution then bias, matmul then bias, gate order i, f, g,
 o), with TF32 off (``gnn_motion_planning_tpu_torch/__init__.py``).
+``pb_forward`` and ``state_forward`` carry gradients (NEXT's training loss
+goes through them); the planner's calls (``set_problem``, ``net_forward``)
+run under ``torch.no_grad()``.
 """
 
 from __future__ import annotations
@@ -187,6 +190,23 @@ def next_net(cfg: NextConfig, mlp_in: int, flat: dict, device) -> NextNet:
 
     net = load_flat(NextNet(cfg, mlp_in), flat)
     return net.to(device).eval()
+
+
+@torch.no_grad()
+def init_next_from_scratch(net: NextNet, seed: int) -> NextNet:
+    """``net`` re-initialised for training from scratch (JAX
+    training/next.py:85-103): every weight of rank >= 2 He normal,
+    N(0, 2 / prod(shape[1:])) (torch's layout puts the fan-in there), every
+    other leaf zero; drawn from a generator seeded by ``seed``."""
+
+    gen = torch.Generator(device=net.coords.device).manual_seed(int(seed))
+    for p in net.parameters():
+        if p.dim() >= 2:
+            fan_in = float(np.prod(p.shape[1:]))
+            p.normal_(0.0, (2.0 / fan_in) ** 0.5, generator=gen)
+        else:
+            p.zero_()
+    return net
 
 
 def next_net_from_params(cfg: NextConfig, mlp_in: int, params: dict, device) -> NextNet:

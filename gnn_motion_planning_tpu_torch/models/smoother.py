@@ -5,6 +5,10 @@ Per loop iteration it links each path waypoint to its 10 nearest
 environment samples (stable argsort, as ``jnp.argsort``), runs one
 add-aggregation residual MPNN pass over [path | free | collided] nodes with
 a 3-bit type one-hot, and rewrites the interior waypoints.
+
+The forward carries gradients (the trainer's loss goes through it, to
+BatchNorm's running statistics too, which the JAX package trains as
+parameters); the planners call it under ``torch.no_grad()``.
 """
 
 from __future__ import annotations
@@ -15,7 +19,7 @@ import torch
 from torch import nn
 
 from gnn_motion_planning_tpu_torch.graphs.knn import dedup_edges
-from gnn_motion_planning_tpu_torch.models.mlp import batch_norm_eval, linear, mlp2, seq2
+from gnn_motion_planning_tpu_torch.models.mlp import batch_norm_eval, init_default_, linear, mlp2, seq2
 from gnn_motion_planning_tpu_torch.ops.segment import masked_segment_sum
 
 
@@ -48,6 +52,15 @@ class Smoother(nn.Module):
         self.smooth_node = nn.Linear(e, d)
 
 
+def init_smoother_params(model: Smoother, seed: int) -> Smoother:
+    """``model`` with fresh weights for training from scratch (JAX
+    training/smoother.py:26-51): torch's default initialisation from a
+    generator seeded by ``seed``, BatchNorm at identity."""
+
+    gen = torch.Generator(device=model.smooth_node.weight.device).manual_seed(int(seed))
+    return init_default_(model, gen)
+
+
 def _node_code(m: nn.Sequential, x):
     """Seq(Lin, BatchNorm1d(eval), ReLU, Lin)."""
 
@@ -65,7 +78,6 @@ def _mpnn_add(p: _Process, x, src, dst, e_alive):
     return x + mlp2(p.lin_1, agg)
 
 
-@torch.no_grad()
 def smoother_forward(
     model: Smoother,
     path: torch.Tensor,  # (L, d) padded waypoints

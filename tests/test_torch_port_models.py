@@ -102,7 +102,7 @@ def test_explorer_forward_matches_jax(problem, models, route):
     got = explorer_forward(
         explorer, torch.as_tensor(v), torch.as_tensor(valid), torch.as_tensor(goal),
         *edges, torch.as_tensor(toks), torch.as_tensor(mask), loop=5,
-    ).numpy()
+    ).detach().numpy()  # the forward carries gradients
     scale = max(1.0, float(np.abs(want).max()))
     np.testing.assert_allclose(got, want, rtol=0, atol=1e-5 * scale)
     live = np.zeros_like(want, bool)
@@ -138,7 +138,7 @@ def test_smoother_forward_matches_jax(problem, models, route):
     got = smoother_forward(
         smoother, torch.as_tensor(path), torch.as_tensor(mask), torch.as_tensor(env_nodes),
         torch.as_tensor(env_valid), 500, *(torch.as_tensor(b) for b in base), loop=1,
-    ).numpy()
+    ).detach().numpy()
     scale = max(1.0, float(np.abs(want).max()))
     np.testing.assert_allclose(got, want, rtol=0, atol=1e-5 * scale)
     assert not np.allclose(got[1 : n_path - 1], path[1 : n_path - 1])  # interior rewritten
@@ -193,7 +193,7 @@ def test_config_explorer_forward_matches_jax(config_case):
     got = explorer_forward(
         explorer, torch.as_tensor(v), torch.as_tensor(valid), torch.as_tensor(v[1]),
         *edges, torch.as_tensor(toks), torch.as_tensor(mask), loop=5,
-    ).numpy()
+    ).detach().numpy()  # the forward carries gradients
     scale = max(1.0, float(np.abs(want).max()))
     np.testing.assert_allclose(got, want, rtol=0, atol=1e-5 * scale)
     live = np.zeros_like(want, bool)
@@ -229,7 +229,7 @@ def test_config_smoother_forward_matches_jax(config_case):
     got = smoother_forward(
         smoother, torch.as_tensor(path), torch.as_tensor(mask), torch.as_tensor(env_nodes),
         torch.as_tensor(env_valid), 500, *(torch.as_tensor(b) for b in base), loop=1,
-    ).numpy()
+    ).detach().numpy()
     scale = max(1.0, float(np.abs(want).max()))
     np.testing.assert_allclose(got, want, rtol=0, atol=1e-5 * scale)
     assert not np.allclose(got[1 : n_path - 1], path[1 : n_path - 1])  # interior rewritten

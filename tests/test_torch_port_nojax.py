@@ -2,7 +2,7 @@
 
 Every module of ``gnn_motion_planning_tpu_torch`` and the module-level code
 of ``chip_smoke.py`` and of every ``tools/torch_port_*.py`` are imported in a fresh interpreter in which ``jax``,
-``jaxlib`` and ``gnn_motion_planning_tpu`` cannot be imported.
+``jaxlib``, ``optax``, ``orbax`` and ``gnn_motion_planning_tpu`` cannot be imported.
 """
 
 import subprocess
@@ -14,7 +14,7 @@ REPO = Path(__file__).resolve().parents[1]
 _PROBE = r"""
 import importlib, importlib.abc, pkgutil, sys
 
-BLOCKED = ("jax", "jaxlib", "gnn_motion_planning_tpu")
+BLOCKED = ("jax", "jaxlib", "optax", "orbax", "gnn_motion_planning_tpu")
 
 class Block(importlib.abc.MetaPathFinder):
     def find_spec(self, name, path=None, target=None):

@@ -108,7 +108,8 @@ Phases, each bracketed by a progress line with the elapsed seconds:
    defaults; Kuka_7D's launches must include ``chain_states_free`` (only
    its GNN method reaches the kernel: its baselines check through the
    native core and NEXT's FK runs on the host). Then ``eval_bit``,
-   ``eval_lazysp``, ``eval_rrt`` and ``eval_next`` on ur5 problem 2000, and
+   ``eval_lazysp``, ``eval_rrt`` and ``eval_next`` (at T = UR5_NEXT_T) on
+   ur5 problem 2000, and
    ``explore_batch`` without a model smoother (the oracle smoother) on ur5
    2000-2001: each must launch ``capsules_hit`` and not
    ``chain_states_free``, and each smoothed lane must have spent checks
@@ -118,7 +119,10 @@ Phases, each bracketed by a progress line with the elapsed seconds:
    on the CPU. Rows beside the JAX fixture rows
    (tests/data/torch_port_{eval_all,baselines_ur5,oracle_smoother_ur5}_jax_
    rows.json), reported with the count that agrees; seconds per method and
-   problem.
+   problem. Then the four baselines on snake7 problem 2000, through its own
+   host protocol (NEXT at T = SNAKE7_NEXT_T: a minute or more at T =
+   1000), each launching ``capsules_hit`` and not ``chain_states_free``,
+   beside tests/data/torch_port_baselines_snake7_jax_rows.json (reported).
 
 9. training, at the full width of the shipped models, from the committed
    data (tests/data/torch_port_prm_kuka7_8.pkl, the first 8 kuka7 PRM
@@ -137,6 +141,37 @@ Phases, each bracketed by a progress line with the elapsed seconds:
    trained module through an npz and back: the forwards bit for bit
    (deterministic kernels).
 
+10. strict and audit (``envs/strict.py``, ``graphs/audit.py``,
+   ``planners/strict_fallback.py``): (a) the hull surface points of
+   ``model_0``, ``model_3`` and ur5, built on the host (scipy's qhull): P
+   and the SHA-256 of the points beside the JAX package's
+   (tests/data/torch_port_strict_jax.json; reported) and the build's
+   seconds. (b) ``strict_hit`` on the card against the same port code on
+   the CPU, problem 2000 of kuka7, kuka13, ur5 and kuka14: 4,096 uniform
+   states and up to 64 lines from a free to a blocked one bisected to
+   2**-17..2**-20 (enforced: 0 differing); the largest difference of the
+   world points, and ms and aten ops per 256 states. (c) ``_batch_edge_free``
+   on 300 edges (chunks of 256) of kuka7 (entry B) and ur5 (entry A), each
+   launching its entry: the oracle with the kernel against the oracle with
+   its plain version, and the entry against its plain version on the
+   chunk's inputs (enforced), ur5's peak memory; both entries timed at
+   kuka7's chunk shape and entry A at ur5's. (d) the audit of
+   ``tools/strict_verifier.py`` (seed 0, chunks of 256 from problem 2000
+   on, 100,096 configurations) with the port's oracle and ``strict_hit``
+   (``envs/strict.py::audit_counts``): the four counts beside
+   ``assets/calibration/strict_<env>.json`` and the JAX package's counts on
+   the CPU (tests/data/torch_port_strict_jax.json), reported,
+   configurations a second, and the seconds of the ``strict_hit`` calls
+   inside the audit (each between two synchronisations) and their share.
+   (e) ``protocol_rgg_connected`` on kuka7 2000 and maze2easy 2000 beside
+   the JAX dicts (reported). (f)
+   kuka14 problem 2170 through ``explore(strict_fallback=True)`` at the
+   reference protocol: success and ``strict_certified``, a finite path from
+   the start to the goal, 0 strict hits along it on the card and on the
+   CPU, ``capsules_hit`` launched and ``chain_states_free`` not
+   (enforced); checks and cost beside the JAX row (reported); seconds of
+   the search, the fallback and the smoothing.
+
 A watchdog ends a stalled run with every thread's stack and a non-zero
 exit. Without a CUDA device, or outside a checkout of the repository, the
 script exits non-zero and prints no result. Its last line is
@@ -147,6 +182,7 @@ from __future__ import annotations
 
 import contextlib
 import faulthandler
+import importlib
 import io
 import json
 import math
@@ -190,7 +226,27 @@ SEED = 1234
 # the oracle smoother's problems
 BASELINE_ENVS = ("Maze_2D_Easy", "Kuka_7D")
 UR5_BASELINE = 2000
+# ur5's NEXT at a cut T, to make room for phase 10 (at T = 1000: 71-80 s
+# on the card; the CPU tests hold the whole row)
+UR5_NEXT_T = 200
+# snake7's baseline problem; its NEXT at a cut T (at T = 1000 a minute or
+# more; the CPU tests hold the whole row)
+SNAKE7_BASELINE = 2000
+SNAKE7_NEXT_T = 200
 ORACLE_SMOOTHER_PROBLEMS = [2000, 2001]
+# phase 10: the URDFs whose hull surfaces are sampled, the envs of the
+# strict check and of the audit, uniform states a config, the audit's
+# configurations and chunk (tools/strict_verifier.py::audit: seed 0,
+# problems 2000 on), the batched edge oracle's configs, and the
+# oracle_conservatism witness (assets/benchmarks/strict_fallback_kuka14.json)
+STRICT_URDFS = {"kuka7": "kuka_iiwa/model_0.urdf", "kuka13": "kuka_iiwa/model_3.urdf",
+                "ur5": "ur5/ur5.urdf"}
+STRICT_CONFIGS = ("kuka7", "kuka13", "ur5", "kuka14")
+STRICT_STATES = 4096
+AUDIT_CONFIGS = 100_000
+EDGE_CONFIGS = ("kuka7", "ur5")
+RGG_CASES = (("kuka7", 2000), ("maze2easy", 2000))
+WITNESS = 2170
 # H100 SXM peaks (NVIDIA data sheet): fp32 outside the tensor cores, HBM3
 PEAK_FP32_FLOPS = 67e12
 PEAK_BYTES_PER_S = 3.35e12
@@ -344,23 +400,26 @@ def check_chain(name: str, env, qs):
 
 
 @contextlib.contextmanager
-def plain_box_family(env, record: list):
-    """Run the env's oracle with the plain version of ``capsules_hit`` in
-    place of the kernel; ``record`` receives the arguments of every call."""
+def plain_box_family(env, record: list, entry: str = "capsules_hit"):
+    """Run the env's oracle with the plain version of entry ``entry``
+    (``capsules_hit``, or ``chain_states_free`` for kuka7 and kuka13) in
+    place of the kernel; ``record`` receives the arguments of every
+    call."""
 
     from gnn_motion_planning_tpu_torch.ops import capsule
 
     module = sys.modules[type(env).__module__]
+    reference = getattr(capsule, entry + "_reference")
 
     def plain(*args):
         record.append(args)
-        return capsule.capsules_hit_reference(*args)
+        return reference(*args)
 
-    module.capsules_hit = plain
+    setattr(module, entry, plain)
     try:
         yield
     finally:
-        module.capsules_hit = capsule.capsules_hit
+        setattr(module, entry, getattr(capsule, entry))
 
 
 def check_env_oracle(config: str, env, qs, scene=None):
@@ -649,7 +708,8 @@ def stage_breakdown(config: str, env, model, model_s, indexes) -> dict:
 
     import torch
 
-    from gnn_motion_planning_tpu_torch.api import eval_gnn as evaluation
+    # the module (the package re-exports its function under the same name)
+    evaluation = importlib.import_module("gnn_motion_planning_tpu_torch.api.eval_gnn")
 
     totals: dict = {}
 
@@ -875,7 +935,27 @@ def check_chain_lanes(name: str, env, qs, scene) -> int:
     return n_diff
 
 
-def near_contact_states(env, steps=(17, 18, 19, 20), n_uniform: int = 2048):
+def bisect_states(is_free, free, blocked, levels=(17, 18, 19, 20)):
+    """States on both sides of a decision boundary: the segment from each
+    free state to a blocked one bisected in float64 until it is 2**-k of
+    its length, for k in ``levels``; ``is_free`` maps (n, d) float32 states
+    to (n,) bool. Both ends at every level, float32."""
+
+    import numpy as np
+
+    lo, hi = free.astype(np.float64), blocked.astype(np.float64)
+    out = []
+    for k in range(1, max(levels) + 1):
+        mid = 0.5 * (lo + hi)
+        f = is_free(mid.astype(np.float32))
+        lo = np.where(f[:, None], mid, lo)
+        hi = np.where(f[:, None], hi, mid)
+        if k in levels:
+            out.append(np.concatenate([lo, hi]).astype(np.float32))
+    return np.concatenate(out)
+
+
+def near_contact_states(env, n_uniform: int = 2048):
     """States 2**-17 to 2**-20 of a segment from the oracle's contact
     boundary (the inputs of tests/test_torch_port_arms.py::
     test_near_contact_distances_equal_xla): bisection between free and
@@ -894,16 +974,7 @@ def near_contact_states(env, steps=(17, 18, 19, 20), n_uniform: int = 2048):
         pr[:, 0], pr[:, 1], (n_uniform, env.config_dim)).astype(np.float32)
     ok = free_fn(qs)
     m = min(int(ok.sum()), int((~ok).sum()), 256)
-    lo, hi = qs[ok][:m].astype(np.float64), qs[~ok][:m].astype(np.float64)
-    out = []
-    for k in range(1, max(steps) + 1):
-        mid = 0.5 * (lo + hi)
-        f = free_fn(mid.astype(np.float32))
-        lo = np.where(f[:, None], mid, lo)
-        hi = np.where(f[:, None], hi, mid)
-        if k in steps:
-            out.append(np.concatenate([lo, hi]).astype(np.float32))
-    return np.concatenate(out)
+    return bisect_states(free_fn, qs[ok][:m], qs[~ok][:m])
 
 
 @contextlib.contextmanager
@@ -1109,6 +1180,26 @@ def print_kernels(launches: dict, max_abs_err: dict, at_4096: dict) -> None:
     } for name, key in (("capsules_hit", "A"), ("chain_states_free", "B"))]}), flush=True)
 
 
+def launch_counter(launches: dict):
+    """counted(name, run): run one path with the launch counts set to 0 just
+    before and read just after; (run's result, the counts), which are also
+    added to ``launches`` (the kernels line)."""
+
+    from gnn_motion_planning_tpu_torch.ops import capsule
+
+    def counted(config, run):
+        for name in capsule.LAUNCHES:
+            capsule.LAUNCHES[name] = 0
+        out = run()
+        counts = dict(capsule.LAUNCHES)
+        for name, n in counts.items():
+            print(f"  {name} launches on the {config} path: {n}", flush=True)
+            launches[name] = launches.get(name, 0) + n
+        return out, counts
+
+    return counted
+
+
 def quiet(fn, *args, **kwargs):
     """Call fn with its standard output (the drivers' metric blocks and
     progress) silenced."""
@@ -1150,6 +1241,39 @@ def baseline_agree(label: str, got, want) -> bool:
     print(f"  {label}: port {list(got)} jax {None if want is None else list(want)} "
           f"{'agree' if same else 'DIFFER'}", flush=True)
     return same
+
+
+def snake7_baselines(env, counted, card: str) -> None:
+    """Phase 8's snake7 rows: the four baselines on problem 2000 through
+    its own host protocol (NEXT at T = SNAKE7_NEXT_T), each launching
+    ``capsules_hit`` and not ``chain_states_free``, beside the JAX rows."""
+
+    data = REPO / "tests" / "data"
+    fx = json.loads((data / "torch_port_baselines_snake7_jax_rows.json").read_text())
+    want = {r["method"]: (r["success"], r["checks"], r["cost"]) for r in fx["rows"]}
+    want["next"] = next((r["success"], r["checks"], r["cost"]) for r in fx["cut_rows"]
+                        if r["method"] == "next" and r["t_max"] == SNAKE7_NEXT_T)
+    from gnn_motion_planning_tpu_torch.api import eval_baselines
+
+    agree = 0
+    for method in ("bit", "lazysp", "rrt", "next"):
+        kw = {"t_max": SNAKE7_NEXT_T} if method == "next" else {}
+        t0 = time.perf_counter()
+        r, counts = counted(f"snake7 {method}", lambda: quiet(
+            getattr(eval_baselines, "eval_" + method), "snake7", SEED, env, [SNAKE7_BASELINE],
+            **kw))
+        secs = time.perf_counter() - t0
+        if counts["capsules_hit"] <= 0 or counts["chain_states_free"] != 0:
+            raise AssertionError(f"snake7 {method}: launches {counts}, want capsules_hit only")
+        cost = None if not math.isfinite(r[3]) else float(r[3])
+        t_note = f", T {SNAKE7_NEXT_T}" if kw else ""
+        agree += baseline_agree(
+            f"snake7 {method} problem {SNAKE7_BASELINE} ({secs:.2f} s{t_note}, {card})",
+            (int(r[0]), float(r[1]), cost), want[method])
+        if r[0]:
+            check_baseline_path("snake7", env, SNAKE7_BASELINE, r[5][0],
+                                tree=method in ("rrt", "next"))
+    print(f"  snake7 baseline rows agreeing with the JAX package: {agree} of 4", flush=True)
 
 
 def baselines(dev, arm_envs: dict, counted, card: str) -> None:
@@ -1212,23 +1336,30 @@ def baselines(dev, arm_envs: dict, counted, card: str) -> None:
 
     env = arm_envs["ur5"][0]
     cpu_env = str2env("ur5", device="cpu")[0]
-    ur5_want = {r["method"]: (r["success"], r["checks"], r["cost"]) for r in json.loads(
-        (data / "torch_port_baselines_ur5_jax_rows.json").read_text())["rows"]}
+    fx = json.loads((data / "torch_port_baselines_ur5_jax_rows.json").read_text())
+    ur5_want = {r["method"]: (r["success"], r["checks"], r["cost"]) for r in fx["rows"]}
+    ur5_want["next"] = next((r["success"], r["checks"], r["cost"]) for r in fx["cut_rows"]
+                            if r["method"] == "next" and r["t_max"] == UR5_NEXT_T)
     agree = 0
     for method in ("bit", "lazysp", "rrt", "next"):
+        kw = {"t_max": UR5_NEXT_T} if method == "next" else {}
         t0 = time.perf_counter()
         r, counts = counted(f"ur5 {method}", lambda: quiet(
-            getattr(eval_baselines, "eval_" + method), "ur5", SEED, env, [UR5_BASELINE]))
+            getattr(eval_baselines, "eval_" + method), "ur5", SEED, env, [UR5_BASELINE], **kw))
         secs = time.perf_counter() - t0
         if counts["capsules_hit"] <= 0 or counts["chain_states_free"] != 0:
             raise AssertionError(f"ur5 {method}: launches {counts}, want capsules_hit only")
         got = (int(r[0]), float(r[1]), cost_or_none(r[3]))
-        agree += baseline_agree(f"ur5 {method} problem {UR5_BASELINE} ({secs:.2f} s, {card})",
-                                got, ur5_want[method])
+        t_note = f", T {UR5_NEXT_T}" if kw else ""
+        agree += baseline_agree(
+            f"ur5 {method} problem {UR5_BASELINE} ({secs:.2f} s{t_note}, {card})",
+            got, ur5_want[method])
         if r[0]:
             check_baseline_path("ur5", env, UR5_BASELINE, r[5][0],
                                 tree=method in ("rrt", "next"), cpu_env=cpu_env)
     print(f"  ur5 baseline rows agreeing with the JAX package: {agree} of 4", flush=True)
+
+    snake7_baselines(arm_envs["snake7"][0], counted, card)
 
     model = arm_envs["ur5"][1]
     sm_want = {r["index"]: r for r in json.loads(
@@ -1259,6 +1390,239 @@ def baselines(dev, arm_envs: dict, counted, card: str) -> None:
         raise AssertionError("ur5 oracle smoother: no problem solved")
     print(f"  ur5 oracle smoother: {len(results)} problems in {secs:.2f} s, rows agreeing with "
           f"the JAX package: {agree} of {len(results)} ({card})", flush=True)
+
+
+def strict_and_audit(dev, envs: dict, kuka14_models, counted, card: str) -> None:
+    """Phase 10 (module docstring). ``envs``: the card's env of each of
+    STRICT_CONFIGS; ``kuka14_models``: kuka14's (explorer, smoother)."""
+
+    import hashlib
+
+    import numpy as np
+    import scipy
+    import torch
+
+    # the module (the package re-exports its function under the same name)
+    evaluation = importlib.import_module("gnn_motion_planning_tpu_torch.api.eval_gnn")
+    from gnn_motion_planning_tpu_torch.api.registry import str2env
+    from gnn_motion_planning_tpu_torch.config import problem_rng
+    from gnn_motion_planning_tpu_torch.envs import strict
+    from gnn_motion_planning_tpu_torch.envs.strict import (
+        AUDIT_CHUNK,
+        SurfacePoints,
+        audit_counts,
+        build_surface_points,
+        strict_checker,
+        validate_path_strict,
+        world_points,
+    )
+    from gnn_motion_planning_tpu_torch.graphs.audit import protocol_rgg_connected
+    from gnn_motion_planning_tpu_torch.planners import strict_fallback as fallback
+    from gnn_motion_planning_tpu_torch.utils.assets import asset_path
+
+    fx = json.loads((REPO / "tests" / "data" / "torch_port_strict_jax.json").read_text())
+    cpu_envs = {config: str2env(config, device="cpu")[0] for config in STRICT_CONFIGS}
+
+    def t(a):
+        return torch.as_tensor(a, device=dev)
+
+    # (a) surface points: the host build, its hash beside the JAX package's
+    print(f"  scipy {scipy.__version__}, numpy {np.__version__}", flush=True)
+    surfaces = {}
+    for config, urdf in STRICT_URDFS.items():
+        t0 = time.perf_counter()
+        sp = build_surface_points(envs[config].model, asset_path(urdf), device=dev)
+        secs = time.perf_counter() - t0
+        surfaces[config] = sp
+        pts = sp.pts.cpu().numpy()
+        digest = hashlib.sha256(pts.tobytes()).hexdigest()
+        want = fx["surface"][config]
+        same = len(pts) == want["P"] and digest == want["pts_sha256"]
+        print(f"  surface points {urdf}: P={len(pts)} sha256 {digest[:16]}, built in "
+              f"{secs:.2f} s; jax P={want['P']} sha256 {want['pts_sha256'][:16]} "
+              f"{'equal' if same else 'DIFFER'}", flush=True)
+    surfaces["kuka14"] = surfaces["kuka7"]
+
+    # (b) strict_hit on the card against the same port code on the CPU
+    n_diff = {}
+    for config in STRICT_CONFIGS:
+        env, cpu_env = envs[config], cpu_envs[config]
+        env.init_new_problem(2000)
+        cpu_env.init_new_problem(2000)
+        hit, cpu_hit = strict_checker(env), strict_checker(cpu_env)
+        scene = env.device_scene()
+        pr = np.array(env.pose_range)
+        qs = np.random.RandomState(len(config)).uniform(
+            pr[:, 0], pr[:, 1], (STRICT_STATES, env.config_dim)).astype(np.float32)
+        blocked = hit(scene, t(qs)).cpu().numpy()
+        m = min(64, int(blocked.sum()), int((~blocked).sum()))
+        near = bisect_states(lambda q: ~hit(scene, t(q)).cpu().numpy(),
+                             qs[~blocked][:m], qs[blocked][:m])
+        every = np.concatenate([qs, near])
+        got = hit(scene, t(every)).cpu()
+        want = cpu_hit(cpu_env.device_scene(), torch.as_tensor(every))
+        n_diff[config] = int((got != want).sum())
+        # world points of the near states, card against CPU, each arm
+        sp = surfaces[config]
+        sp_cpu = SurfacePoints(sp.pts.cpu(), sp.frame.cpu())
+        dof = env.chain.lower.shape[0]
+        bases = [env.base1, env.base2] if config == "kuka14" else [None]
+        err = 0.0
+        for arm, base in enumerate(bases):
+            q = near[:64, arm * dof:(arm + 1) * dof]
+            w_card = world_points(env.chain, sp, t(q), base).cpu()
+            w_cpu = world_points(cpu_env.chain, sp_cpu, torch.as_tensor(q),
+                                 None if base is None else base.cpu())
+            err = max(err, float((w_card - w_cpu).abs().max()))
+        q256 = t(qs[:AUDIT_CHUNK])
+        ms = time_turns({"strict": lambda: hit(scene, q256)}, reps=5, calls=3)["strict"]
+        ops = count_ops(lambda: hit(scene, q256))
+        print(f"  strict_hit {config} problem 2000: {STRICT_STATES} uniform + {len(near)} states "
+              f"2**-17..2**-20 from a strict-contact boundary, hits={int(want.sum())}, card vs "
+              f"CPU differing={n_diff[config]}, world points max diff {err:.3g}; "
+              f"{ms:.4f} ms per {AUDIT_CHUNK} states, {ops} aten ops a call ({card})",
+              flush=True)
+    if sum(n_diff.values()):
+        raise AssertionError(f"strict_hit differs between the card and the CPU: {n_diff}")
+
+    # (c) the batched edge oracle at its 256-edge chunk: the kernel against
+    # its plain version at that shape (kuka7: entry B, ur5: entry A)
+    edge_inputs = {}
+    for config in EDGE_CONFIGS:
+        env = envs[config]
+        env.init_new_problem(2000)
+        pr = np.array(env.pose_range)
+        rs = np.random.RandomState(3)
+        a = rs.uniform(pr[:, 0], pr[:, 1], (300, env.config_dim))
+        b = a + rs.normal(0, 0.1 * (pr[:, 1] - pr[:, 0]), a.shape)
+        b[::3] = rs.uniform(pr[:, 0], pr[:, 1], (len(b[::3]), env.config_dim))
+        torch.cuda.reset_peak_memory_stats()
+        (free, cnt), counts = counted(f"{config} _batch_edge_free",
+                                      lambda: env._batch_edge_free(a, b))
+        peak = torch.cuda.max_memory_allocated() / 2**20
+        entry = "chain_states_free" if config in FUSED_CONFIGS else "capsules_hit"
+        if counts[entry] <= 0:
+            raise AssertionError(f"{config} _batch_edge_free never launched {entry}")
+        calls: list = []
+        with plain_box_family(env, calls, entry):
+            want_free, want_cnt = env._batch_edge_free(a, b)
+        n_oracle = int((free != want_free).sum()) + int((cnt != want_cnt).sum())
+        if entry == "capsules_hit":
+            n_kernel = sum(check_kernel(f"{config} _batch_edge_free chunk", args)
+                           for args in calls)
+        else:
+            from gnn_motion_planning_tpu_torch.ops import capsule
+
+            n_kernel = 0
+            for args in calls:
+                kf, kc = capsule.chain_states_free(*args)
+                pf, pc = capsule.chain_states_free_reference(*args)
+                n_kernel += int((kf != pf).sum()) + int((kc != pc).sum())
+        states = calls[0][0].shape[1]
+        edge_inputs[config] = calls[0]
+        print(f"  _batch_edge_free {config} problem 2000: 300 edges in chunks of 256, "
+              f"{states} states a call through {entry} ({len(calls)} calls), free="
+              f"{int(free.sum())} checks={int(cnt.sum())}; kernel vs plain version: oracle "
+              f"differing={n_oracle}, {entry} differing={n_kernel}; peak memory "
+              f"{peak:.0f} MiB ({card})", flush=True)
+        if n_oracle or n_kernel:
+            raise AssertionError(f"{config} _batch_edge_free differs from its plain version")
+    env7 = envs["kuka7"]
+    env7.init_new_problem(2000)
+    time_batch(env7, edge_inputs["kuka7"][0].shape[-2], card,
+               label="kuka7 problem 2000, the _batch_edge_free chunk", reps=5, calls=3)
+    time_entry_a("ur5 _batch_edge_free chunk", edge_inputs["ur5"], card, reps=5, calls=3)
+
+    # seconds of the calls of a function, each between two synchronisations
+    seconds: dict = {}
+
+    def timed(name, fn):
+        def call(*args, **kwargs):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*args, **kwargs)
+            torch.cuda.synchronize()
+            seconds[name] = seconds.get(name, 0.0) + time.perf_counter() - t0
+            return out
+        return call
+
+    # (d) the audit at scale: the capsule oracle against strict_hit, beside
+    # the records and the JAX package's counts on the CPU; the strict_hit
+    # calls inside it timed for their share of the audit's seconds
+    checker = strict.strict_checker
+    for config in STRICT_CONFIGS:
+        env = envs[config]
+        record = json.loads(Path(asset_path(f"calibration/strict_{config}.json")).read_text())
+        name = f"{config} audit strict_hit"
+        strict.strict_checker = lambda e, name=name: timed(name, checker(e))
+        try:
+            t0 = time.perf_counter()
+            got, _ = counted(f"{config} audit", lambda: audit_counts(env, AUDIT_CONFIGS))
+            secs = time.perf_counter() - t0
+        finally:
+            strict.strict_checker = checker
+        n_calls = got["n_configs"] // AUDIT_CHUNK
+        print(f"  audit {config}: {json.dumps(got)} in {secs:.2f} s ({got['n_configs'] / secs:.0f} "
+              f"configurations a second); strict_hit {n_calls} calls {seconds[name]:.2f} s, "
+              f"{100 * seconds[name] / secs:.1f} % of the audit ({card})", flush=True)
+        for label, want in (("record", record), ("jax on the CPU", fx["audit"][config])):
+            want = {k: want[k] for k in got}
+            print(f"    {label}: {json.dumps(want)} {'equal' if got == want else 'DIFFER'}",
+                  flush=True)
+
+    # (e) protocol_rgg_connected beside the JAX package's dicts
+    for config, index in RGG_CASES:
+        env = envs[config] if config in envs else str2env(config, device=dev)[0]
+        t0 = time.perf_counter()
+        rep, _ = counted(f"{config} protocol_rgg_connected",
+                         lambda: protocol_rgg_connected(env, SEED, index))
+        want = next(r for r in fx["rgg"] if (r["config"], r["index"]) == (config, index))
+        want = {k: v for k, v in want.items() if k not in ("config", "index")}
+        print(f"  protocol_rgg_connected {config} {index}: {json.dumps(rep)} in "
+              f"{time.perf_counter() - t0:.2f} s; jax {json.dumps(want)} "
+              f"{'equal' if rep == want else 'DIFFER'}", flush=True)
+
+    # (f) the witness: kuka14 2170 recovered by the strict fallback
+    env = envs["kuka14"]
+    model, model_s = kuka14_models
+    saved = fallback.strict_fallback_path, evaluation.model_smooth
+    fallback.strict_fallback_path = timed("fallback", fallback.strict_fallback_path)
+    evaluation.model_smooth = timed("smoothing", evaluation.model_smooth)
+    try:
+        env.rng = problem_rng(SEED, WITNESS)
+        env.init_new_problem(WITNESS)
+        res, counts = counted("kuka14 2170 strict fallback", lambda: evaluation.explore(
+            env, model, model_s, smooth=True, strict_fallback=True, **protocol("kuka14")))
+    finally:
+        fallback.strict_fallback_path, evaluation.model_smooth = saved
+    if counts["capsules_hit"] <= 0 or counts["chain_states_free"] != 0:
+        raise AssertionError(f"kuka14 2170: launches {counts}, want capsules_hit only")
+    if not (res["success"] and res["strict_certified"]):
+        raise AssertionError(f"kuka14 2170: success {res['success']}, strict_certified "
+                             f"{res['strict_certified']}")
+    path = np.asarray(res["path"])
+    if not (np.isfinite(path).all()
+            and np.array_equal(path[0], np.asarray(env.init_state, np.float32))
+            and np.array_equal(path[-1], np.asarray(env.goal_state, np.float32))):
+        raise AssertionError("kuka14 2170: the certified path does not join start to goal")
+    cpu_env = cpu_envs["kuka14"]
+    cpu_env.init_new_problem(WITNESS)
+    hits = {"card": validate_path_strict(env, res["path"], strict_checker(env)),
+            "CPU": validate_path_strict(cpu_env, res["path"], strict_checker(cpu_env))}
+    smooth_hits = validate_path_strict(env, res["smooth_path"], strict_checker(env))
+    if hits["card"] or hits["CPU"]:
+        raise AssertionError(f"kuka14 2170: strict hits along the certified path {hits}")
+    w = fx["witness"]
+    got = (res["c_explore"] + res["c_smooth"], evaluation.path_cost(res["smooth_path"]))
+    same = got[0] == w["checks"] and abs(got[1] - w["cost"]) < 1e-3
+    fb = seconds.get("fallback", 0.0)
+    print(f"  kuka14 {WITNESS} strict fallback: success and strict_certified, path "
+          f"{len(path)} states, strict hits along it card {hits['card']} CPU {hits['CPU']} "
+          f"(smoothed path: {smooth_hits}); checks {got[0]} cost {got[1]:.4f}; jax checks "
+          f"{w['checks']} cost {w['cost']:.4f} {'agree' if same else 'DIFFER'}; seconds: "
+          f"search {res['total_explore'] - fb:.2f} (sampling included), fallback {fb:.2f}, "
+          f"smoothing {seconds.get('smoothing', 0.0):.2f}, all {res['total']:.2f} ({card})",
+          flush=True)
 
 
 # phase 9: the card's gradients against the CPU's, |diff| <= GRAD_RTOL *
@@ -1745,18 +2109,7 @@ def main() -> int:
 
     from gnn_motion_planning_tpu_torch.api.eval_gnn import eval_gnn_batched, eval_gnn_serve
 
-    def counted(config, run):
-        """Run one path with the launch counts set to 0 just before and read
-        just after; the counts join the kernels line."""
-
-        for name in capsule.LAUNCHES:
-            capsule.LAUNCHES[name] = 0
-        out = run()
-        counts = dict(capsule.LAUNCHES)
-        for name, n in counts.items():
-            print(f"  {name} launches on the {config} path: {n}", flush=True)
-            launches[name] = launches.get(name, 0) + n
-        return out, counts
+    counted = launch_counter(launches)
 
     with phase("6 eval_gnn_batched kuka7, kuka14, maze2easy"):
         for config, lanes, indexes in BATCHED_CELLS:
@@ -1828,6 +2181,13 @@ def main() -> int:
 
     with phase("9 training"):
         training(dev, counted, card)
+
+    with phase("10 strict and audit"):
+        envs = {config: arm_envs[config][0] for config in ("ur5", "kuka14")}
+        envs["kuka7"] = env7
+        envs["kuka13"] = KukaEnv(kuka_file="kuka_iiwa/model_3.urdf",
+                                 map_file="maze_files/kukas_13_3000.pkl", device=dev)
+        strict_and_audit(dev, envs, arm_envs["kuka14"][1:], counted, card)
 
     faulthandler.cancel_dump_traceback_later()
     print_kernels(launches, max_abs_err, timings[4096])

@@ -11,6 +11,7 @@ sweep and the serving paths live in ``api/batched.py`` and
 
 from __future__ import annotations
 
+import copy
 from time import time
 
 import numpy as np
@@ -18,7 +19,7 @@ import torch
 
 from gnn_motion_planning_tpu_torch.api.planner_bundle import get_planner
 from gnn_motion_planning_tpu_torch.config import problem_rng, set_random_seed
-from gnn_motion_planning_tpu_torch.graphs.knn import build_rgg_edges, k_scaled
+from gnn_motion_planning_tpu_torch.graphs.knn import EdgeList, build_rgg_edges, k_scaled
 from gnn_motion_planning_tpu_torch.models.explorer import explorer_forward
 from gnn_motion_planning_tpu_torch.models.smoother import Smoother, smoother_forward
 from gnn_motion_planning_tpu_torch.planners.gnn_explore import backtrack
@@ -103,12 +104,20 @@ def model_smooth(model_s, free, collided, old_path, env, iter: int = 5):
 
 @torch.no_grad()
 def explore(env, model, model_s, smooth: bool = True, batch: int = 500,
-            t_max: int = 1000, k: int = 30, smoother: str = "model", loop: int = 5):
+            t_max: int = 1000, k: int = 30, smoother: str = "model", loop: int = 5,
+            strict_fallback: bool = False):
     """GNN-guided planning for the env's current problem (reference
     eval_gnn.py:168-276; the same return payload). ``smoother``: "model"
     (the smoother GNN ``model_s``), "oracle" (``planners/oracle_smoother.py::
     joint_smoother``, five rounds, through the env's host oracles) or
-    anything else (the path as found), as JAX api/eval_gnn.py:322-338."""
+    anything else (the path as found), as JAX api/eval_gnn.py:322-338.
+
+    ``strict_fallback`` (opt-in, off under the reference protocol): when
+    the capsule-feasible graph exhausts without success on an arm env,
+    re-admit capsule-blocked RGG edges that the sound hull-surface verifier
+    certifies free (``planners/strict_fallback.py``), as JAX
+    api/eval_gnn.py:295-316. Every extra check is counted; a path found so
+    has ``strict_certified`` true in the result."""
 
     planner = get_planner(env)
     scene = env.device_scene()
@@ -188,6 +197,19 @@ def explore(env, model, model_s, smooth: bool = True, batch: int = 500,
             free = free + [np.asarray(f) for f in new_free]
             collided = (collided + list(new_collided))[: len(free)]
 
+    strict_certified = False
+    if not success and strict_fallback and v_np is not None:
+        from gnn_motion_planning_tpu_torch.planners.strict_fallback import strict_fallback_path
+
+        # the last round's RGG, built on this v_np and its F (JAX rebuilds
+        # it because its fused round does not return the edges)
+        edges = EdgeList(*(x.cpu().numpy() for x in edges))
+        idx_path = strict_fallback_path(env, v_np, F, edges, state[3].cpu().numpy())
+        if idx_path is not None:
+            success = True
+            strict_certified = True
+            path = [v_np[i] for i in idx_path]
+
     c_explore = env.collision_check_count - c0
     c1 = env.collision_check_count
     t1 = time()
@@ -214,6 +236,7 @@ def explore(env, model, model_s, smooth: bool = True, batch: int = 500,
         "total": total_time - t0,
         "total_explore": t1 - t0,
         "success": success,
+        "strict_certified": strict_certified,
         "t0": t0,
         "path": path,
         "smooth_path": smooth_path,
@@ -289,6 +312,24 @@ def eval_gnn(str_, seed, env, indexes, model=None, model_s=None, use_tqdm: bool 
         n_success, collision, running_time, solution_cost, total_time,
         paths, smooth_paths, collision_explore, total_time_explore,
     )
+
+
+def eval_gnn_pure(str_, seed, env, indexes, model=None, model_s=None, **kwargs):
+    """Obstacle-encoding-free variant (reference eval_gnn.py:80-93; JAX
+    api/eval_gnn.py:475-487): the explorer of ``str2name(use_obstacle=
+    False)``, the ``_pure.pt`` checkpoint, or ``model``, run without its
+    obstacle encoder; the protocol's smoother."""
+
+    from gnn_motion_planning_tpu_torch.api.registry import smoother_scale, str2models
+
+    if model is None:
+        model, _ = str2models(str_, env.device, smoother_scale(str_, env), use_obstacle=False)
+    # the caller's module keeps its config: a shallow copy shares the weights
+    model = copy.copy(model)
+    model.cfg = model.cfg._replace(use_obstacles=False)
+    if model_s is None:
+        _, model_s = str2models(str_, env.device, smoother_scale(str_, env))
+    return eval_gnn(str_, seed, env, indexes, model, model_s, **kwargs)
 
 
 # the batched sweep and the serving paths, re-exported as the JAX package

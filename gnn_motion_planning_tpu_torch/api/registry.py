@@ -18,7 +18,7 @@ from gnn_motion_planning_tpu_torch import resolve_device
 from gnn_motion_planning_tpu_torch.models.convert import load_checkpoint, load_flat, load_npz, read_checkpoint
 from gnn_motion_planning_tpu_torch.models.explorer import Explorer, ExplorerConfig, init_explorer_params
 from gnn_motion_planning_tpu_torch.models.smoother import Smoother, SmootherConfig, init_smoother_params
-from gnn_motion_planning_tpu_torch.utils.assets import REPO, asset_path
+from gnn_motion_planning_tpu_torch.utils.assets import REPO
 
 _SPECS = {
     "maze2": dict(
@@ -93,14 +93,22 @@ _CONFIGS = {
 
 # Per-config protocol overrides (JAX api/registry.py:130-159): snake7's
 # regenerated problems need resample rounds, so its t_max is 2000. The maze
-# ``chunk`` entries tune the batched path, which is not ported yet.
+# ``chunk`` entries tune the batched path (``api/batched.py``): a large
+# chunk makes a round one search call, since the maze oracle is cheap.
 EVAL_OVERRIDES = {
     "snake7": {"t_max": 2000},
     "maze2easy": {"chunk": 4096},
     "maze2hard": {"chunk": 4096},
     "maze3": {"chunk": 4096},
 }
+# knobs that tune only the batched path; the scalar explore() takes none
 _BATCHED_ONLY = ("chunk", "lanes")
+
+
+def eval_overrides(name: str) -> dict:
+    """Harness keywords overriding the reference defaults for one config."""
+
+    return dict(EVAL_OVERRIDES.get(name, {}))
 
 
 def scalar_overrides(name: str) -> dict:
@@ -173,13 +181,13 @@ def _scratch(ckpt: str):
     return path if _prefer_scratch() and path.exists() else None
 
 
-def _load_smoother(spec: dict, scale: float) -> Smoother:
-    """The smoother of a spec. Where the shipped checkpoint is the legacy
-    architecture (no ``node_code.0.*``: maze3's ``smooth_3d_att.pt``), the
-    scratch-trained twin in ``assets/weights_jax/`` is loaded instead, as
-    the JAX package does (api/registry.py:230-253). A missing twin raises:
-    the JAX package would then smooth with the oracle smoother, which is
-    not ported."""
+def _load_smoother(spec: dict, scale: float):
+    """The smoother of a spec, or None. Where the shipped checkpoint is the
+    legacy architecture (no ``node_code.0.*``: maze3's ``smooth_3d_att.pt``),
+    the scratch-trained twin in ``assets/weights_jax/`` is loaded instead,
+    and where that twin is missing there is no smoother: ``explore`` then
+    smooths with the oracle smoother, as the JAX package does
+    (api/registry.py:230-253)."""
 
     smoother = Smoother(SmootherConfig(scale=scale, **spec["smoother"]))
     scratch = _scratch(spec["smoother_ckpt"])
@@ -188,7 +196,8 @@ def _load_smoother(spec: dict, scale: float) -> Smoother:
     flat = read_checkpoint(spec["smoother_ckpt"])
     if any(k.startswith("node_code.0.") for k in flat):
         return load_flat(smoother, flat)
-    return load_npz(smoother, asset_path(_scratch_npz(spec["smoother_ckpt"])))
+    twin = REPO / "assets" / _scratch_npz(spec["smoother_ckpt"])
+    return load_npz(smoother, twin) if twin.exists() else None
 
 
 def _explorer_ckpt(spec: dict, use_obstacle: bool) -> str:
@@ -222,7 +231,8 @@ def _load_explorer(spec: dict, use_obstacle: bool = True) -> Explorer:
 def str2models(name: str, device=None, scale: float = 1.0, use_obstacle: bool = True,
                load: bool = True):
     """(explorer, smoother) modules on ``device``, with the shipped weights;
-    the smoother works in units of ``scale`` (``smoother_scale``). With
+    the smoother works in units of ``scale`` (``smoother_scale``) and is None
+    where the config has no loadable one (``_load_smoother``). With
     ``load=False`` both are freshly initialised (``init_explorer_params``,
     ``init_smoother_params``, seeded by the trainers' default seed), for
     training from scratch."""
@@ -237,7 +247,9 @@ def str2models(name: str, device=None, scale: float = 1.0, use_obstacle: bool = 
             Explorer(ExplorerConfig(use_obstacles=use_obstacle, **spec["explorer"])), _INIT_SEED)
         smoother = init_smoother_params(
             Smoother(SmootherConfig(scale=scale, **spec["smoother"])), _INIT_SEED)
-    return explorer.to(device).eval(), smoother.to(device).eval()
+    if smoother is not None:
+        smoother = smoother.to(device).eval()
+    return explorer.to(device).eval(), smoother
 
 
 def str2name(name: str, device=None, get_data: bool = False, use_obstacle: bool = True,

@@ -47,6 +47,9 @@ from gnn_motion_planning_tpu_torch.utils.geomcore import GeomChain
 from gnn_motion_planning_tpu_torch.utils.timer import Timer, timed
 
 MAX_OBSTACLES = 16
+# edges a call of the batched edge oracle (``_batch_edge_free``): each
+# takes 2 + k_max states, 74,496 a call on ur5 (JAX envs/kuka.py:543-568)
+EDGE_CHUNK = 256
 
 
 def _apply_calibration(chain: ChainParams, urdf_relpath: str) -> ChainParams:
@@ -147,7 +150,10 @@ class KukaEnv:
     ):
         self._start(device)
         self._load_problems(map_file)
-        model = parse_urdf(asset_path(kuka_file))
+        self.kuka_file = kuka_file
+        # the parsed URDF: its link order names the frames of fk_link_frames
+        # (the strict verifier reads it, envs/strict.py)
+        self.model = model = parse_urdf(asset_path(kuka_file))
         self.chain = _apply_calibration(chain_from_model(model, self.device), kuka_file)
         self._set_pose_range(model.pose_range())
         self.kukaEndEffectorIndex = self.config_dim - 1
@@ -345,6 +351,34 @@ class KukaEnv:
         no_collision = self._edge_fp(state, new_state)
         done = no_collision and self.in_goal_region(new_state)
         return new_state, action, no_collision, done
+
+    def _batch_edge_free(self, a: np.ndarray, b: np.ndarray):
+        """(free (n,), counts (n,)) of the edges a[i] -> b[i] under the
+        fixed-step rule, through the device edge oracle in chunks of
+        ``EDGE_CHUNK`` edges, each chunk one oracle call (entry B on kuka7 and
+        kuka13, entry A on ur5, kuka14 and snake7); the last chunk is padded
+        with copies of its first edge to the full width, as the JAX package
+        pads it, so every call has one shape. Decisions are per edge.
+        ``collision_check_count`` is left as it was (the audit's call)."""
+
+        a = np.asarray(a, np.float32)
+        b = np.asarray(b, np.float32)
+        n = len(a)
+        free = np.zeros(n, bool)
+        cnt = np.zeros(n, np.int32)
+        edge_free = self.kernels().edge_free
+        for s0 in range(0, n, EDGE_CHUNK):
+            aa, bb = a[s0 : s0 + EDGE_CHUNK], b[s0 : s0 + EDGE_CHUNK]
+            m = len(aa)
+            if m < EDGE_CHUNK:
+                pad = (EDGE_CHUNK - m,) + aa.shape[1:]
+                aa = np.concatenate([aa, np.broadcast_to(aa[:1], pad)])
+                bb = np.concatenate([bb, np.broadcast_to(bb[:1], pad)])
+            fr, ct = edge_free(self._scene, *(torch.as_tensor(x, device=self.device)
+                                              for x in (aa, bb)))
+            free[s0 : s0 + m] = fr.cpu().numpy()[:m]
+            cnt[s0 : s0 + m] = ct.cpu().numpy()[:m]
+        return free, cnt
 
     def _valid_state(self, state):
         pr = np.array(self.pose_range)

@@ -74,7 +74,8 @@ class Kuka2Env(KukaEnv):
                  map_file: str = "maze_files/kukas_14_3000.pkl", device=None):
         self._start(device)
         self._load_problems(map_file)
-        model = parse_urdf(asset_path(kuka_file))
+        self.kuka_file = kuka_file
+        self.model = model = parse_urdf(asset_path(kuka_file))
         self.chain = _apply_calibration(chain_from_model(model, self.device), kuka_file)
         self._set_pose_range(list(model.pose_range()) * 2)
         self.base1, self.base2 = (

@@ -603,6 +603,20 @@ class MazeEnv:
             )
         return True
 
+    def _batch_edge_free(self, a, b):
+        """(free (n,), counts (n,)) of the edges a[i] -> b[i], one host
+        ``_edge_fp`` each; ``collision_check_count`` is left as it was
+        (JAX envs/maze.py:736-746)."""
+
+        free = np.zeros(len(a), bool)
+        counts = np.zeros(len(a), np.int32)
+        for i in range(len(a)):
+            c0 = self.collision_check_count
+            free[i] = self._edge_fp(np.asarray(a[i]), np.asarray(b[i]))
+            counts[i] = self.collision_check_count - c0
+        self.collision_check_count -= int(counts.sum())
+        return free, counts
+
     @timed(Timer.EDGE_CHECK)
     def _edge_fp(self, state, new_state):
         """The host oracle of one edge (JAX envs/maze.py:741-766): both ends,

@@ -18,6 +18,7 @@ Sampling goes through the device oracle.
 
 from __future__ import annotations
 
+import copy
 from typing import Optional
 
 import numpy as np
@@ -105,8 +106,10 @@ def make_snake_kernels(chain, pair_mask: np.ndarray, lower, upper, rrt_eps: floa
 
 
 class SnakeEnv(KukaEnv):
-    """Host wrapper with the reference SnakeEnv protocol: KukaEnv's metric,
-    step budget and sampling through the device oracle, on maze problems."""
+    """Host wrapper with the reference SnakeEnv protocol on maze problems:
+    its own problem dict and robot points; KukaEnv's metric, ``step``,
+    ``set_random_init_goal``, edge and state checks and sampling, through
+    the device oracle (JAX envs/snake.py's are the same arithmetic)."""
 
     RRT_EPS = 0.1
 
@@ -120,7 +123,7 @@ class SnakeEnv(KukaEnv):
         self.width = self.maps.shape[1]
         self._set_pose_range([(-9.0, 9.0), (-9.0, 9.0)] + [(-np.pi, np.pi)] * 5)
 
-        model = parse_urdf(asset_path("snake.urdf"))
+        self.model = model = parse_urdf(asset_path("snake.urdf"))
         self.chain = chain_from_model(model, self.device)
         # links 4 or more hops apart: the capsule fits of neighbouring
         # capsule and ball links overlap by construction
@@ -133,24 +136,43 @@ class SnakeEnv(KukaEnv):
         return "snake" + str(self.config_dim)
 
     def init_new_problem(self, index: Optional[int] = None):
+        """Problem ``index``'s map, start and goal (JAX envs/snake.py:
+        282-296): the reference protocol's dict (``get_problem``)."""
+
         if index is None:
             index = self.episode_i
         self.index = index
         self.episode_i = (self.episode_i + 1) % len(self.maps)
+        self.set_problem_data(self.maps[index], self.init_states[index],
+                              self.goal_states[index])
+        return self.get_problem()
+
+    def set_problem_data(self, occ_map, start, goal):
+        """A problem given by its occupancy map and its endpoints (JAX
+        envs/snake.py:298-308)."""
+
         self.collision_check_count = 0
-        self.map = self.maps[index]
-        self.init_state = self.init_states[index]
-        self.goal_state = self.goal_states[index]
-        self.obstacles = np.argwhere(self.map == 1) / self.map.shape[0] - 0.5
-        self._scene = make_snake_scene(self.map, self.device)
+        self.collision_point = None
+        self.map = occ_map
+        self.init_state = np.asarray(start)
+        self.goal_state = np.asarray(goal)
+        self.obstacles = np.argwhere(occ_map == 1) / occ_map.shape[0] - 0.5
+        self._scene = make_snake_scene(occ_map, self.device)
 
-    def set_random_init_goal(self):
-        """Not ported: the JAX package's (envs/snake.py:589) samples through
-        snake7's own host protocol, which the port lacks; the arm version
-        would draw another stream."""
+    def get_problem(self):
+        """The map and the endpoints (JAX envs/snake.py:310-315)."""
 
-        raise NotImplementedError(
-            "SnakeEnv.set_random_init_goal (JAX envs/snake.py:589) is not ported")
+        return {"map": self.map, "init_state": self.init_state, "goal_state": self.goal_state}
+
+    def get_robot_points(self, config):
+        """The base position (q0, q1), a copy (JAX envs/snake.py:341-344)."""
+
+        return copy.deepcopy(config[:2])
+
+    def robot_points(self, configs) -> np.ndarray:
+        """``get_robot_points`` of many configurations (n, 7): (n, 2)."""
+
+        return np.asarray(configs).reshape(-1, self.config_dim)[:, :2].copy()
 
     def kernels(self) -> EnvKernels:
         if self._kernels is None:

@@ -142,7 +142,7 @@ class UR5Env(KukaEnv):
         self._load_problems(map_file)
         # 6 capsules a link: a 3-capsule fit of the chunky UR5 meshes
         # overshoots by up to 5.4 cm (JAX envs/ur5.py:199-205)
-        model = parse_urdf(asset_path("ur5/ur5.urdf"), n_caps=6)
+        self.model = model = parse_urdf(asset_path("ur5/ur5.urdf"), n_caps=6)
         self.chain = chain_from_model(model, self.device)
         self._set_pose_range(model.pose_range())
         calibration = json.loads(Path(asset_path("calibration/ur5.json")).read_text())

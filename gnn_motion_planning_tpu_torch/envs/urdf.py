@@ -51,6 +51,16 @@ def load_stl_vertices(path: str) -> np.ndarray:
     return np.unique(tri.reshape(-1, 3).astype(np.float64), axis=0)
 
 
+def load_obj_vertices(path: str) -> np.ndarray:
+    """Wavefront OBJ -> vertex array (n, 3), in file order."""
+
+    verts = []
+    for line in Path(path).read_text().splitlines():
+        if line.startswith("v "):
+            verts.append([float(x) for x in line.split()[1:4]])
+    return np.asarray(verts, np.float64)
+
+
 def _kmeans(x: np.ndarray, k: int, iters: int = 30, seed: int = 0) -> np.ndarray:
     rng = np.random.RandomState(seed)
     c = x[rng.choice(len(x), min(k, len(x)), replace=False)]

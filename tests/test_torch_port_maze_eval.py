@@ -134,17 +134,20 @@ def test_unported_names_raise(name):
 
 
 def test_missing_maze3_smoother_raises_with_its_path(monkeypatch):
-    """maze3's shipped smoother is the legacy architecture; without the
-    scratch-trained twin the port raises (the JAX package would switch to
-    the oracle smoother, which is not ported)."""
+    """maze3's shipped smoother is the legacy architecture; its
+    scratch-trained twin is ``weights_jax/smooth_3d_scratch.npz``. Named
+    for the error the port raised before the oracle smoother was ported:
+    without the twin there is now no smoother (None), and ``explore``
+    smooths with the oracle smoother, as the JAX package does
+    (api/registry.py:230-253)."""
 
     from gnn_motion_planning_tpu_torch.api import registry
 
     assert registry._scratch_npz("data/weights/smooth_3d_attv3.pt") == "weights_jax/smooth_3d_scratch.npz"
     monkeypatch.setattr(registry, "_scratch_npz", lambda ckpt: "weights_jax/absent_scratch.npz")
-    with pytest.raises(FileNotFoundError, match="weights_jax/absent_scratch.npz"):
-        registry.str2models("maze3", device="cpu")
-    registry.str2models("maze2easy", device="cpu")  # a checkpoint of the current architecture
+    assert registry.str2models("maze3", device="cpu")[1] is None
+    # a checkpoint of the current architecture
+    assert registry.str2models("maze2easy", device="cpu")[1] is not None
 
 
 def test_planner_picks_the_core_by_bounds():

@@ -510,12 +510,24 @@ def test_get_label_and_random_init_goal_equal_jax(config):
 
 
 def test_snake_set_random_init_goal_is_not_ported():
+    """Named for the error it raised before snake7's host protocol was
+    ported (JAX envs/snake.py:589): it now draws two distinct free samples
+    from the problem's stream, JAX's start and goal."""
+
+    from gnn_motion_planning_tpu.config import problem_rng as jax_rng
+    from gnn_motion_planning_tpu.envs.snake import SnakeEnv as JaxSnakeEnv
+    from gnn_motion_planning_tpu_torch.config import problem_rng
     from gnn_motion_planning_tpu_torch.envs.snake import SnakeEnv
 
-    env = SnakeEnv(device="cpu")
+    env, jenv = SnakeEnv(device="cpu"), JaxSnakeEnv()
     env.init_new_problem(0)
-    with pytest.raises(NotImplementedError, match="envs/snake.py:589"):
-        env.set_random_init_goal()
+    jenv.init_new_problem(0)
+    env.rng, jenv.rng = problem_rng(1234, 0), jax_rng(1234, 0)
+    env.set_random_init_goal()
+    jenv.set_random_init_goal()
+    np.testing.assert_array_equal(env.init_state, jenv.init_state)
+    np.testing.assert_array_equal(env.goal_state, jenv.goal_state)
+    assert np.abs(env.init_state - env.goal_state).sum() != 0
 
 
 # ---------------------------------------------------------------------------

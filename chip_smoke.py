@@ -172,6 +172,35 @@ Phases, each bracketed by a progress line with the elapsed seconds:
    (enforced); checks and cost beside the JAX row (reported); seconds of
    the search, the fallback and the smoothing.
 
+11. the rest (the last slice): (a) the explorer's policy scatter on 2,048
+   random edges of 64 nodes with repeated live (dst, src) pairs, card
+   against CPU: the forward and the gradient equal, the last live duplicate
+   written, the others' gradient 0 (enforced). (b) ``eval_gnn`` on kuka7
+   and ur5 2000-2001 with ``GMP_FLAT_PROJ=0`` (ur5: the dense sweep at the
+   K_CHEAP budget through entry A; kuka7: the full sweep through entry B)
+   and with the default flat sweep, in this run: rows equal (enforced),
+   beside tests/data/torch_port_cheap_jax.json (reported), the smoothing's
+   seconds and overflow redos of both. (c) 2,000 samples of kuka13
+   "endpoint" (the native core) and snake7 "straight" and "corridor"
+   (entry A) on problem 2000, card against CPU (enforced: equal streams),
+   then one ``eval_gnn`` row each beside
+   tests/data/torch_port_bias_jax_rows.json (reported). (d) snake7's 3 x 3
+   grid window against the full scan through entry A, problem 2000, 4,096
+   uniform states and phase 1's near-contact states (enforced: equal), ms
+   per call of both at B = 4,096. (e) ``make_mesh(1)`` and a refused
+   ``make_mesh(count + 1)``; ``explore_batch`` on kuka7 2000-2003 on the
+   one-card mesh against the unsharded rows (enforced); one
+   ``make_train_step`` step's loss within 1e-5 of
+   ``frontier_cross_entropy`` (enforced). Nothing runs on more than one
+   card. (f) ``tools/torch_port_train_scratch.py``: the explorer (kuka7's
+   committed slice, 4 iterations of 8 graphs) and the smoother (the paths
+   of 12 problems, 3 epochs) from fresh inits into
+   ``build/torch_port/smoke_weights``: losses finite,
+   the npz read back, the forwards bit for bit (enforced). (g)
+   ``rgg.Graph`` on kuka7 and maze2easy 2000 with 200 samples, card env
+   against CPU env (enforced). (h) ``jit_eager_consistent`` on the 2-D maze edge oracle
+   (eager against a CUDA graph) and a ``profile_trace`` file (enforced).
+
 A watchdog ends a stalled run with every thread's stack and a non-zero
 exit. Without a CUDA device, or outside a checkout of the repository, the
 script exits non-zero and prints no result. Its last line is
@@ -247,6 +276,21 @@ AUDIT_CONFIGS = 100_000
 EDGE_CONFIGS = ("kuka7", "ur5")
 RGG_CASES = (("kuka7", 2000), ("maze2easy", 2000))
 WITNESS = 2170
+# phase 11: the GMP_FLAT_PROJ=0 problems (kuka7 and ur5), the biased
+# samplers (config, bias) with their samples and problem, the sharded
+# explore_batch's problems, the scratch trainer's steps, rgg.Graph's samples
+PHASE11_PROJ_PROBLEMS = [2000, 2001]
+PHASE11_BIASES = (("kuka13", "endpoint"), ("snake7", "straight"), ("snake7", "corridor"))
+PHASE11_BIAS_SAMPLES = 2000
+PHASE11_BIAS_PROBLEM = 2000
+PHASE11_MESH_PROBLEMS = [2000, 2001, 2002, 2003]
+PHASE11_SCRATCH_STEPS = 3
+# the explorer's iterations over the 8 graphs: 3 steps of 8 samples (a
+# graph without a label is skipped)
+PHASE11_SCRATCH_ITERS = 4
+# the smoother's data pass: 12 problems give a replay over one batch of 8
+PHASE11_SMOOTHER_PROBLEMS = 12
+PHASE11_RGG_SAMPLES = 200
 # H100 SXM peaks (NVIDIA data sheet): fp32 outside the tensor cores, HBM3
 PEAK_FP32_FLOPS = 67e12
 PEAK_BYTES_PER_S = 3.35e12
@@ -1913,6 +1957,305 @@ def training(dev, counted, card: str) -> None:
         raise AssertionError("a trained module and its npz round trip differ")
 
 
+def flat_proj_off_rows(dev, envs: dict, counted, card: str) -> None:
+    """Phase 11 (b): eval_gnn on each env with ``GMP_FLAT_PROJ=0`` (the
+    dense sweep at the K_CHEAP budget where the env has a cheap edge check,
+    ur5; the full sweep on kuka7) against the default (flat) rows of the same
+    call, with the smoothing's seconds and overflow redos of both."""
+
+    import os
+
+    import torch
+
+    evaluation = importlib.import_module("gnn_motion_planning_tpu_torch.api.eval_gnn")
+    fixture = json.loads((REPO / "tests" / "data" / "torch_port_cheap_jax.json").read_text())
+    inner = evaluation.model_smooth
+    for config, (env, model, model_s) in envs.items():
+        out = {}
+        for flag in ("auto", "0"):
+            os.environ["GMP_FLAT_PROJ"] = flag
+            env._torch_planner = None  # the planner reads the flag when it is built
+            seconds = [0.0]
+
+            def timed_smooth(*args, **kwargs):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                path = inner(*args, **kwargs)
+                torch.cuda.synchronize()
+                seconds[0] += time.perf_counter() - t0
+                return path
+
+            evaluation.model_smooth = timed_smooth
+            rows = []
+            try:
+                counted(f"{config} GMP_FLAT_PROJ={flag}", lambda: quiet(
+                    evaluation.eval_gnn, config, SEED, env, PHASE11_PROJ_PROBLEMS, model=model,
+                    model_s=model_s, rows=rows, **protocol(config)))
+            finally:
+                evaluation.model_smooth = inner
+            redos = evaluation.get_planner(env).overflow_redos
+            out[flag] = rows
+            print(f"  {config} GMP_FLAT_PROJ={flag}: smoothing {seconds[0]:.3f} s over "
+                  f"{len(rows)} problems, {redos} overflow redos "
+                  f"({evaluation.get_planner(env).project_cheap.__qualname__}) ({card})",
+                  flush=True)
+        os.environ.pop("GMP_FLAT_PROJ")
+        env._torch_planner = None
+        for got, ref, want in zip(out["0"], out["auto"], fixture["rows"][config]):
+            same = all(got[k] == want[k] for k in ("success", "c_explore", "c_smooth")) and \
+                abs(got["cost"] - want["cost"]) < 1e-3
+            print(f"  flag=0 {json.dumps(got)}", flush=True)
+            print(f"  jax    {json.dumps(want)} {'agree' if same else 'DIFFER'}", flush=True)
+            if not (all(got[k] == ref[k] for k in ("index", "success", "c_explore", "c_smooth"))
+                    and abs(got["cost"] - ref["cost"]) < 1e-3):
+                raise AssertionError(f"{config}: GMP_FLAT_PROJ=0 row {got} differs from the "
+                                     f"default row {ref} of this run")
+
+
+def sampler_biases(dev, envs: dict, counted, card: str) -> None:
+    """Phase 11 (c): each bias's accepted stream on the card against the
+    CPU (enforced), then one eval_gnn row each beside the JAX fixture."""
+
+    import numpy as np
+
+    from gnn_motion_planning_tpu_torch.api.eval_gnn import eval_gnn
+    from gnn_motion_planning_tpu_torch.api.registry import str2env
+    from gnn_motion_planning_tpu_torch.config import problem_rng
+
+    fixture = json.loads((REPO / "tests" / "data" / "torch_port_bias_jax_rows.json").read_text())
+    for config, bias in PHASE11_BIASES:
+        env, model, model_s = envs[config]
+        cpu_env = str2env(config, device="cpu")[0]
+        streams = []
+        for e in (env, cpu_env):
+            e.sampler_bias = bias
+            e.init_new_problem(PHASE11_BIAS_PROBLEM)
+            e.rng = problem_rng(SEED, PHASE11_BIAS_PROBLEM)
+            e._accept_rate = None
+
+            def draw(e=e):
+                return e.sample_n_points(PHASE11_BIAS_SAMPLES, need_negative=True)
+
+            free, coll = counted(f"{config} {bias} sampling", draw)[0] if e is env else draw()
+            streams.append((np.asarray(free), np.asarray(coll), e.collision_check_count))
+        same = all(np.array_equal(a, b) for a, b in zip(*streams))
+        print(f"  {config} {bias}: {len(streams[0][0])} accepted of {streams[0][2]} draws, card "
+              f"and CPU streams {'equal' if same else 'DIFFER'}", flush=True)
+        if not same:
+            raise AssertionError(f"{config} {bias}: the card's stream differs from the CPU's")
+        rows = []
+        t0 = time.perf_counter()
+        counted(f"{config} {bias} eval_gnn", lambda: quiet(
+            eval_gnn, config, SEED, env, [PHASE11_BIAS_PROBLEM], model=model, model_s=model_s,
+            rows=rows, **protocol(config)))
+        want = fixture["rows"][f"{config}_{bias}"]
+        agree = all(rows[0][k] == want[k] for k in ("success", "c_explore", "c_smooth")) and \
+            abs(rows[0]["cost"] - want["cost"]) < 1e-3
+        print(f"  port {json.dumps(rows[0])} {time.perf_counter() - t0:.2f} s", flush=True)
+        print(f"  jax  {json.dumps(want)} {'agree' if agree else 'DIFFER'}", flush=True)
+        env.sampler_bias = None
+
+
+def the_rest(dev, env7, arm_envs: dict, counted, card: str) -> None:
+    """Phase 11 (module docstring)."""
+
+    import shutil
+    import sys as _sys
+
+    import numpy as np
+    import torch
+
+    from gnn_motion_planning_tpu_torch.api.eval_gnn import eval_gnn_batched
+    from gnn_motion_planning_tpu_torch.api.registry import str2env, str2models, str2name
+    from gnn_motion_planning_tpu_torch.envs import maze
+    from gnn_motion_planning_tpu_torch.envs.snake import make_snake_grid_scene
+    from gnn_motion_planning_tpu_torch.graphs import rgg
+    from gnn_motion_planning_tpu_torch.models.convert import load_npz
+    from gnn_motion_planning_tpu_torch.models.explorer import explorer_forward, scatter_policy
+    from gnn_motion_planning_tpu_torch.models.smoother import smoother_forward
+    from gnn_motion_planning_tpu_torch.parallel.mesh import make_mesh
+    from gnn_motion_planning_tpu_torch.planners.gnn_smooth import base_chain_edges
+    from gnn_motion_planning_tpu_torch.training.explorer import (
+        ExplorerBatch,
+        frontier_cross_entropy,
+        make_train_step,
+    )
+    from gnn_motion_planning_tpu_torch.training.optim import trainable_leaves
+    from gnn_motion_planning_tpu_torch.utils.debug import jit_eager_consistent, profile_trace
+
+    # (a) the scatter at repeated live (dst, src) pairs, card against CPU
+    rng = np.random.RandomState(0)
+    n, e = 64, 2048
+    case = (rng.normal(size=e).astype(np.float32), rng.randint(0, n, e), rng.randint(0, n, e),
+            rng.rand(e) < 0.8, rng.normal(size=(n, n)).astype(np.float32))
+    out = {}
+    for where in ("cpu", dev):
+        score, src, dst, alive, weight = (torch.as_tensor(x, device=where) for x in case)
+        score.requires_grad_(True)
+        policy = scatter_policy(score, src, dst, alive, n)
+        (policy * weight).sum().backward()
+        out[str(where)] = (policy.detach().cpu(), score.grad.cpu())
+    (p_cpu, g_cpu), (p_dev, g_dev) = out["cpu"], out[str(dev)]
+    key = case[2] * n + case[1]
+    live = np.flatnonzero(case[3])
+    last = {k: i for i, k in zip(live, key[live])}  # the last live edge a key
+    losers = np.setdiff1d(live, list(last.values()))
+    winners_right = all(float(p_dev[k // n, k % n]) == case[0][i] for k, i in last.items())
+    print(f"  scatter: {len(live)} live edges, {len(losers)} repeated (dst, src) losers; forward "
+          f"card == CPU {torch.equal(p_cpu, p_dev)}, gradient card == CPU "
+          f"{torch.equal(g_cpu, g_dev)}, losers' gradient 0 {bool((g_dev[losers] == 0).all())}, "
+          f"last duplicate wins {winners_right}", flush=True)
+    if not (torch.equal(p_cpu, p_dev) and torch.equal(g_cpu, g_dev) and len(losers)
+            and bool((g_dev[losers] == 0).all()) and winners_right):
+        raise AssertionError("the explorer's scatter at repeated pairs differs on the card")
+
+    # (b) the cheap projection
+    _, model7, _, model7_s, _ = str2name("kuka7", device=dev)
+    flat_proj_off_rows(dev, {"kuka7": (env7, model7, model7_s), "ur5": arm_envs["ur5"]},
+                       counted, card)
+
+    # (c) the sampler biases
+    k13 = str2name("kuka13", device=dev)
+    sampler_biases(dev, {"kuka13": (k13[0], k13[1], k13[3]), "snake7": arm_envs["snake7"]},
+                   counted, card)
+
+    # (d) snake7's grid window against the full scan through entry A
+    snake = arm_envs["snake7"][0]
+    snake.init_new_problem(2000)
+    oracle = snake.kernels().batch_state_free
+    grid = make_snake_grid_scene(snake.map, dev)
+    pr = np.array(snake.pose_range)
+    qs = np.concatenate([np.random.RandomState(11).uniform(pr[:, 0], pr[:, 1], (4096, 7)),
+                         near_contact_states(snake)]).astype(np.float32)
+    q_t = torch.as_tensor(qs, device=dev)
+    (full, _), counts = counted("snake7 full scan", lambda: oracle(snake.device_scene(), q_t))
+    (win, _), _ = counted("snake7 grid window", lambda: oracle(grid, q_t))
+    n_diff = int((full != win).sum())
+    q4096 = q_t[:4096]
+    ms = time_turns({"grid": lambda: oracle(grid, q4096),
+                     "full": lambda: oracle(snake.device_scene(), q4096)}, reps=11, calls=5)
+    print(f"  snake7 2000: grid window against the full scan on {len(qs)} states "
+          f"({len(qs) - 4096} near contact): {n_diff} differ; ms per call at B = 4096: grid "
+          f"{ms['grid']:.4f}, full scan (entry A) {ms['full']:.4f} ({card})", flush=True)
+    if n_diff or counts["capsules_hit"] <= 0:
+        raise AssertionError(f"snake7's grid window differs from the full scan: {n_diff}")
+
+    # (e) the mesh on one card
+    mesh = make_mesh(1)
+    try:
+        make_mesh(torch.cuda.device_count() + 1)
+    except ValueError:
+        pass
+    else:
+        raise AssertionError("make_mesh accepted more cards than exist")
+    rows = {}
+    for label, m in (("unsharded", None), ("mesh of 1", mesh)):
+        rows[label] = []
+        counted(f"kuka7 explore_batch {label}", lambda: quiet(
+            eval_gnn_batched, "kuka7", SEED, env7, PHASE11_MESH_PROBLEMS, model7, model7_s,
+            lanes=len(PHASE11_MESH_PROBLEMS), mesh=m, rows=rows[label], **protocol("kuka7")))
+    same = len(rows["mesh of 1"]) == len(PHASE11_MESH_PROBLEMS) and all(
+        all(a[k] == b[k] for k in ("index", "success", "c_explore", "c_smooth"))
+        and abs(a["cost"] - b["cost"]) < 1e-3 for a, b in zip(rows["mesh of 1"], rows["unsharded"]))
+    print(f"  explore_batch kuka7 {PHASE11_MESH_PROBLEMS} on make_mesh(1): rows "
+          f"{'equal' if same else 'DIFFER'} to the unsharded", flush=True)
+    if not same:
+        raise AssertionError(f"sharded rows {rows['mesh of 1']} != {rows['unsharded']}")
+    explorer = str2models("kuka7", dev, load=False)[0]
+    b, n_nodes, n_edges = 8, 64, 512
+    r = np.random.RandomState(1)
+    frontier = np.zeros((b, n_nodes, n_nodes), bool)
+    frontier[:, 0, :] = True
+    ex = ExplorerBatch(*(torch.as_tensor(a, device=dev) for a in (
+        r.uniform(-2, 2, (b, n_nodes, 7)).astype(np.float32), np.ones((b, n_nodes), bool),
+        r.uniform(-2, 2, (b, 7)).astype(np.float32), r.randint(0, n_nodes, (b, n_edges)),
+        r.randint(0, n_nodes, (b, n_edges)), np.ones((b, n_edges), bool),
+        r.uniform(-1, 1, (b, 16, 6)).astype(np.float32), np.ones((b, 16), bool), frontier,
+        np.full(b, 5), np.full(b, 5))))
+    with torch.no_grad():
+        want = float(frontier_cross_entropy(explorer, ex, 10))
+    step, optimizer, _ = make_train_step(explorer.cfg, mesh=mesh)
+    loss = step(explorer, optimizer(trainable_leaves(explorer)), ex)
+    print(f"  make_train_step on make_mesh(1): loss {loss:.7f}, frontier_cross_entropy "
+          f"{want:.7f}, relative difference {abs(loss - want) / abs(want):.2e}", flush=True)
+    if not abs(loss - want) <= 1e-5 * abs(want):
+        raise AssertionError("the mesh step's loss differs from frontier_cross_entropy")
+
+    # (f) the scratch trainer on kuka7's committed slice, from a fresh init
+    _sys.path.insert(0, str(REPO / "tools"))
+    import torch_port_train_scratch as scratch
+
+    out_dir = REPO / "build" / "torch_port" / "smoke_weights"
+    shutil.rmtree(out_dir, ignore_errors=True)
+    (e_path, e_model, e_losses), _ = counted("kuka7 scratch explorer", lambda: quiet(
+        scratch.train_explorer_scratch, "kuka7", 8, PHASE11_SCRATCH_ITERS,
+        data_path=REPO / "tests" / "data" / "torch_port_prm_kuka7_8.pkl", out_dir=out_dir,
+        device=dev))
+    (s_path, s_model, s_losses), counts = counted("kuka7 scratch smoother", lambda: quiet(
+        scratch.train_smoother_scratch, "kuka7", PHASE11_SMOOTHER_PROBLEMS, 1,
+        PHASE11_SCRATCH_STEPS, out_dir=out_dir, device=dev))
+    print(f"  scratch explorer kuka7: losses {e_losses} -> {e_path.relative_to(REPO)}", flush=True)
+    print(f"  scratch smoother kuka7: losses {s_losses} -> {s_path.relative_to(REPO)}", flush=True)
+    if not (e_losses and s_losses and np.isfinite(e_losses + s_losses).all()):
+        raise AssertionError("the scratch trainer's losses are missing or not finite")
+    import warnings
+
+    with torch.no_grad(), warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        torch.use_deterministic_algorithms(True, warn_only=True)
+        fresh_e, fresh_s = str2models("kuka7", dev, load=False)
+        back_e, back_s = load_npz(fresh_e, e_path), load_npz(fresh_s, s_path)
+        one = [t[0] for t in ex[:8]]
+        same_e = torch.equal(explorer_forward(e_model, *one, loop=5),
+                             explorer_forward(back_e, *one, loop=5))
+        L = 16
+        path = torch.as_tensor(r.uniform(-2, 2, (L, 7)).astype(np.float32), device=dev)
+        nodes = torch.as_tensor(r.uniform(-2, 2, (1000, 7)).astype(np.float32), device=dev)
+        s_args = (path, torch.arange(L, device=dev) < 10, nodes,
+                  torch.ones(1000, dtype=torch.bool, device=dev), 500,
+                  *(torch.as_tensor(a, device=dev) for a in base_chain_edges(L, 10)))
+        same_s = torch.equal(smoother_forward(s_model, *s_args, loop=1),
+                             smoother_forward(back_s, *s_args, loop=1))
+        torch.use_deterministic_algorithms(False)
+    print(f"  scratch checkpoints read back, forwards bit for bit equal: explorer {same_e}, "
+          f"smoother {same_s}", flush=True)
+    if not (same_e and same_s):
+        raise AssertionError("a scratch checkpoint does not read back to the trained model")
+
+    # (g) rgg.Graph on kuka7 2000 (and maze2easy 2000, whose r-disc graph
+    # has edges: kuka7's radius is the 3-D workspace's, so its 7-D graph
+    # keeps only the self loops, in both packages), card env against CPU env
+    m_env = str2env("maze2easy", device=dev)[0]
+    for config, card_env in (("kuka7", env7), ("maze2easy", m_env)):
+        graphs = []
+        for e in (card_env, str2env(config, device="cpu")[0]):
+            e.init_new_problem(2000)
+            e.rng = None
+            np.random.seed(0)
+            g = rgg.Graph(e).initialize(PHASE11_RGG_SAMPLES)
+            graphs.append((g.V, g.E, g.E_attr, g.random_problem(np.random.RandomState(1))))
+        same = graphs[0] == graphs[1]
+        print(f"  rgg.Graph {config} 2000: {len(graphs[0][0])} vertices, {len(graphs[0][1])} "
+              f"edges, random problem {graphs[0][3]}; card == CPU {same}", flush=True)
+        if not same:
+            raise AssertionError(f"rgg.Graph on {config} on the card differs from the CPU's")
+
+    # (h) debug: eager against a CUDA graph, and a profiler trace
+    m_env.init_new_problem(2000)
+    a = torch.as_tensor(r.uniform(-1, 1, (4096, 2)).astype(np.float32), device=dev)
+    b2 = torch.as_tensor(r.uniform(-1, 1, (4096, 2)).astype(np.float32), device=dev)
+    jit_eager_consistent(maze.edge_free_2d, m_env.device_scene(), a, b2)
+    trace_dir = REPO / "build" / "torch_port" / "smoke_trace"
+    with profile_trace(str(trace_dir)):
+        maze.edge_free_2d(m_env.device_scene(), a, b2)
+        torch.cuda.synchronize()
+    size = (trace_dir / "trace.json").stat().st_size
+    print(f"  jit_eager_consistent(maze edge_free_2d, 4096 edges): eager == CUDA graph; "
+          f"profile_trace wrote {size} bytes", flush=True)
+    if size <= 0:
+        raise AssertionError("profile_trace wrote no trace")
+
+
 def main() -> int:
     faulthandler.dump_traceback_later(WATCHDOG_SECONDS, exit=True)
     import torch
@@ -2188,6 +2531,9 @@ def main() -> int:
         envs["kuka13"] = KukaEnv(kuka_file="kuka_iiwa/model_3.urdf",
                                  map_file="maze_files/kukas_13_3000.pkl", device=dev)
         strict_and_audit(dev, envs, arm_envs["kuka14"][1:], counted, card)
+
+    with phase("11 the rest"):
+        the_rest(dev, env7, arm_envs, counted, card)
 
     faulthandler.cancel_dump_traceback_later()
     print_kernels(launches, max_abs_err, timings[4096])

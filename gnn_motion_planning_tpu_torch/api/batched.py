@@ -9,10 +9,11 @@ between them, and batched smoothing. Every problem keeps its own
 protocol path's (``api/eval_gnn.py``). :func:`eval_gnn_batched` is the
 sweep driver printing the reference metric block.
 
-Left out of the JAX driver: ``mesh`` (sharding lanes over several cards),
-and the padding of lane groups to power-of-two widths with dummy lanes,
-which exists there only to reuse compiled programs: here a call takes
-exactly the live lanes, and no result depends on the grouping.
+Left out of the JAX driver: the padding of lane groups to power-of-two
+widths with dummy lanes, which exists there only to reuse compiled
+programs: here a call takes exactly the live lanes, and no result depends
+on the grouping. With a ``mesh`` a group is padded to a multiple of the
+mesh size, as there, so that its shards are even.
 """
 
 from __future__ import annotations
@@ -29,6 +30,7 @@ from gnn_motion_planning_tpu_torch.envs.base import stack_scenes
 from gnn_motion_planning_tpu_torch.graphs.knn import build_rgg_edges_lanes, k_scaled
 from gnn_motion_planning_tpu_torch.models.explorer import explorer_forward_lanes
 from gnn_motion_planning_tpu_torch.models.smoother import Smoother, smoother_forward_lanes
+from gnn_motion_planning_tpu_torch.parallel.mesh import same_device
 from gnn_motion_planning_tpu_torch.planners.gnn_explore import backtrack
 from gnn_motion_planning_tpu_torch.planners.gnn_smooth import base_chain_edges, pad_to_bucket
 from gnn_motion_planning_tpu_torch.planners.oracle_smoother import joint_smoother
@@ -198,10 +200,111 @@ def _smooth_lanes(planner, model_s, lanes: dict, paths: dict, F: int, d: int, de
     return smooth_paths, smooth_counts, redone
 
 
+def _plan_lanes(env, planner, model, model_s, group, smooth: bool, batch: int, k: int,
+                loop: int, chunk: int, seed: int, results: dict, stats):
+    """One lane group through sampling, the RGG build, the explorer forward,
+    the lane search and smoothing; the lanes that succeed go into
+    ``results`` by problem index."""
+
+    d = env.config_dim
+    dev = env.device
+    t = lambda a: torch.as_tensor(np.stack(a), device=dev)  # noqa: E731
+    B = len(group)
+    t0 = time()
+    lane = [_sample_lane(env, seed, idx, batch) for idx in group]
+    t_sample = time() - t0
+
+    F = batch + 2
+    t_f = time()
+    scene_b = stack_scenes([x["scene"] for x in lane])
+    v_b, valid_b, coll_b = (t([x[key] for x in lane]) for key in ("v", "valid", "coll"))
+    goal_b, toks_b, tmask_b = (t([x[key] for x in lane]) for key in ("goal", "toks", "tok_mask"))
+    edges = build_rgg_edges_lanes(v_b, valid_b, F, k_scaled(k, F))
+    policy = explorer_forward_lanes(model, v_b, valid_b, goal_b, edges, toks_b, tmask_b, loop)
+    t_forward = time() - t_f
+
+    N = v_b.shape[1]
+    explored0 = torch.zeros((B, N), dtype=torch.bool, device=dev)
+    explored0[:, 0] = True
+    st = (scene_b, v_b, goal_b, policy, edges, coll_b, valid_b, explored0,
+          torch.zeros((B, N), dtype=torch.int64, device=dev),
+          torch.zeros((B, N), dtype=torch.float32, device=dev),
+          torch.zeros((B, N, N), dtype=torch.bool, device=dev))
+    round_log: list = []
+    success, node, prev, explored, checks = _search(planner, st, chunk, round_log)
+    group_time = time() - t0
+
+    paths = {}
+    for li in range(B):
+        if success[li]:
+            paths[li] = [lane[li]["v"][i] for i in backtrack(prev[li], int(node[li]))]
+    t_sm = time()
+    smooth_paths, smooth_counts, redone = {}, {}, 0
+    if smooth and paths and isinstance(model_s, Smoother):
+        smooth_paths, smooth_counts, redone = _smooth_lanes(
+            planner, model_s, dict(enumerate(lane)), paths, F, d, dev)
+    elif smooth and paths:
+        # no model smoother: the oracle smoother lane by lane, each on
+        # its own stream where its sampling left it, as the scalar path
+        for li in sorted(paths):
+            env.rng = lane[li]["rng"]
+            env.init_new_problem(int(group[li]))
+            c_sm = env.collision_check_count
+            smooth_paths[li] = joint_smoother(paths[li], env, iter=5)
+            smooth_counts[li] = env.collision_check_count - c_sm
+    smooth_time = time() - t_sm
+
+    if stats is not None:
+        stats.append({
+            "group_size": B,
+            "sample_s": round(t_sample, 4),
+            "forward_s": round(t_forward, 4),
+            "search_rounds": round_log,
+            "search_s": round(sum(r[1] for r in round_log), 4),
+            "smooth_s": round(smooth_time, 4),
+            "smooth_overflow_redos": redone,
+            "group_s": round(time() - t0, 4),
+            "first_round_failures": int(B - success.sum()),
+        })
+
+    for li, idx in enumerate(group):
+        if success[li]:
+            results[idx] = {
+                "c_explore": int(lane[li]["sample_checks"] + checks[li]),
+                "c_smooth": int(smooth_counts.get(li, 0)),
+                "explored": list(np.nonzero(explored[li])[0]),
+                "forward": group_time / B,
+                "total": group_time / B + smooth_time / max(len(paths), 1),
+                "total_explore": group_time / B,
+                "success": True,
+                "path": paths[li],
+                "smooth_path": smooth_paths.get(li, paths[li] if smooth else []),
+            }
+
+
+def _my_shards(mesh, group, env_device):
+    """This process's shards of a lane group over ``mesh``: the group padded
+    with copies of its first lane to a multiple of the mesh size (JAX
+    batched.py:144-152), cut into equal contiguous shards. Every shard runs
+    on the env's device: a card a process, the torch.distributed way."""
+
+    W = max(mesh.size, -(-len(group) // mesh.size) * mesh.size)
+    padded = list(group) + [group[0]] * (W - len(group))
+    per = W // mesh.size
+    out = []
+    for i, dev in enumerate(mesh.devices):
+        if not same_device(dev, env_device):
+            raise ValueError(f"a shard on {dev} but the env on {env_device}: run one process "
+                             "a card (parallel/mesh.py::init_distributed, global_mesh)")
+        lo = (mesh.first_shard + i) * per
+        out.append(padded[lo : lo + per])
+    return out
+
+
 @torch.no_grad()
 def explore_batch(env, model, model_s, indexes, smooth: bool = True, batch: int = 500,
                   t_max: int = 500, k: int = 30, loop: int = 5, lanes: int = 25,
-                  chunk: int = 64, seed: int = 1234, stats: list | None = None):
+                  chunk: int = 64, seed: int = 1234, mesh=None, stats: list | None = None):
     """Plan a group of problems at once (JAX ``explore_batch``). The RGG
     build and the explorer forward run over the lane group; the greedy
     search runs in ``chunk``-pop calls that advance every live lane with one
@@ -211,100 +314,37 @@ def explore_batch(env, model, model_s, indexes, smooth: bool = True, batch: int 
     back to the scalar multi-round path, re-seeded from the start of their
     stream, so each problem's metrics equal :func:`eval_gnn`'s.
 
-    ``stats``: an optional list; one dict per lane group is appended with
-    its phase breakdown (host sampling, forward, the search calls with
-    their stacked widths, smoothing, overflow redos), and one for the scalar
-    fallbacks. Returns a list of per-problem result dicts (the payload of
-    :func:`explore`).
+    ``mesh`` (``parallel/mesh.py``): each lane group is padded to a
+    multiple of the mesh size and cut into one shard a mesh entry, run on
+    its device; the processes of a multi-process mesh then exchange their
+    results, so each returns every problem's. The metrics do not change
+    with the sharding.
+
+    ``stats``: an optional list; one dict per lane group (per shard) is
+    appended with its phase breakdown (host sampling, forward, the search
+    calls with their stacked widths, smoothing, overflow redos), and one for
+    the scalar fallbacks. Returns a list of per-problem result dicts (the
+    payload of :func:`explore`).
     """
 
     planner = get_planner(env)
-    d = env.config_dim
-    dev = env.device
-    t = lambda a: torch.as_tensor(np.stack(a), device=dev)  # noqa: E731
     indexes = list(indexes)
     results = {}
+    mine = []  # the problems this process planned
 
     for g0 in range(0, len(indexes), lanes):
         group = indexes[g0 : g0 + lanes]
-        B = len(group)
-        t0 = time()
-        lane = [_sample_lane(env, seed, idx, batch) for idx in group]
-        t_sample = time() - t0
-
-        F = batch + 2
-        t_f = time()
-        scene_b = stack_scenes([x["scene"] for x in lane])
-        v_b, valid_b, coll_b = (t([x[key] for x in lane]) for key in ("v", "valid", "coll"))
-        goal_b, toks_b, tmask_b = (t([x[key] for x in lane]) for key in ("goal", "toks", "tok_mask"))
-        edges = build_rgg_edges_lanes(v_b, valid_b, F, k_scaled(k, F))
-        policy = explorer_forward_lanes(model, v_b, valid_b, goal_b, edges, toks_b, tmask_b, loop)
-        t_forward = time() - t_f
-
-        N = v_b.shape[1]
-        explored0 = torch.zeros((B, N), dtype=torch.bool, device=dev)
-        explored0[:, 0] = True
-        st = (scene_b, v_b, goal_b, policy, edges, coll_b, valid_b, explored0,
-              torch.zeros((B, N), dtype=torch.int64, device=dev),
-              torch.zeros((B, N), dtype=torch.float32, device=dev),
-              torch.zeros((B, N, N), dtype=torch.bool, device=dev))
-        round_log: list = []
-        success, node, prev, explored, checks = _search(planner, st, chunk, round_log)
-        group_time = time() - t0
-
-        paths = {}
-        for li in range(B):
-            if success[li]:
-                paths[li] = [lane[li]["v"][i] for i in backtrack(prev[li], int(node[li]))]
-        t_sm = time()
-        smooth_paths, smooth_counts, redone = {}, {}, 0
-        if smooth and paths and isinstance(model_s, Smoother):
-            smooth_paths, smooth_counts, redone = _smooth_lanes(
-                planner, model_s, dict(enumerate(lane)), paths, F, d, dev)
-        elif smooth and paths:
-            # no model smoother: the oracle smoother lane by lane, each on
-            # its own stream where its sampling left it, as the scalar path
-            for li in sorted(paths):
-                env.rng = lane[li]["rng"]
-                env.init_new_problem(int(group[li]))
-                c_sm = env.collision_check_count
-                smooth_paths[li] = joint_smoother(paths[li], env, iter=5)
-                smooth_counts[li] = env.collision_check_count - c_sm
-        smooth_time = time() - t_sm
-
-        if stats is not None:
-            stats.append({
-                "group_size": B,
-                "sample_s": round(t_sample, 4),
-                "forward_s": round(t_forward, 4),
-                "search_rounds": round_log,
-                "search_s": round(sum(r[1] for r in round_log), 4),
-                "smooth_s": round(smooth_time, 4),
-                "smooth_overflow_redos": redone,
-                "group_s": round(time() - t0, 4),
-                "first_round_failures": int(B - success.sum()),
-            })
-
-        for li, idx in enumerate(group):
-            if success[li]:
-                results[idx] = {
-                    "c_explore": int(lane[li]["sample_checks"] + checks[li]),
-                    "c_smooth": int(smooth_counts.get(li, 0)),
-                    "explored": list(np.nonzero(explored[li])[0]),
-                    "forward": group_time / B,
-                    "total": group_time / B + smooth_time / max(len(paths), 1),
-                    "total_explore": group_time / B,
-                    "success": True,
-                    "path": paths[li],
-                    "smooth_path": smooth_paths.get(li, paths[li] if smooth else []),
-                }
+        for part in ([group] if mesh is None else _my_shards(mesh, group, env.device)):
+            mine.extend(part)
+            _plan_lanes(env, planner, model, model_s, part, smooth, batch, k, loop, chunk, seed,
+                        results, stats)
 
     # the scalar fallback for lanes whose single batched round failed: the
     # problem's stream re-seeded from its start, so the fallback is the
     # scalar run of that problem (its first round repeats the failed one)
     t_fb = time()
     n_fb = 0
-    for idx in indexes:
+    for idx in dict.fromkeys(mine):
         if idx not in results:
             n_fb += 1
             env.rng = problem_rng(seed, int(idx))
@@ -313,18 +353,27 @@ def explore_batch(env, model, model_s, indexes, smooth: bool = True, batch: int 
                                                t_max=t_max, k=k, loop=loop)
     if stats is not None and n_fb:
         stats.append({"scalar_fallbacks": n_fb, "fallback_s": round(time() - t_fb, 4)})
+    if mesh is not None and mesh.process_count > 1:
+        gathered = [None] * mesh.process_count
+        torch.distributed.all_gather_object(gathered, results)
+        for part in gathered:
+            results.update(part)
     return [results[idx] for idx in indexes]
 
 
 def eval_gnn_batched(str_, seed, env, indexes, model=None, model_s=None, lanes: int = 25,
                      smooth: bool = True, batch: int = 500, t_max: int = 500, k: int = 30,
-                     chunk: int = 64, stats: list | None = None, rows: list | None = None):
+                     chunk: int = 64, mesh=None, stats: list | None = None,
+                     rows: list | None = None):
     """Batched-lane benchmark sweep: the metrics of :func:`eval_gnn`, with
     problems planned ``lanes`` at a time (JAX ``eval_gnn_batched``).
     Success, checks and cost equal the scalar protocol's per problem; the
     "running time" is the group's wall time per problem (a throughput),
-    not the reference's per-problem latency. ``rows``, if given, receives
-    one dict per problem (index, success, c_explore, c_smooth, cost)."""
+    not the reference's per-problem latency. ``mesh`` shards the lanes
+    (:func:`explore_batch`; ``parallel.mesh.make_mesh(n)`` or
+    ``global_mesh()``); the metrics do not change with it. ``rows``, if
+    given, receives one dict per problem (index, success, c_explore,
+    c_smooth, cost)."""
 
     from gnn_motion_planning_tpu_torch.api.registry import smoother_scale, str2models
 
@@ -336,7 +385,8 @@ def eval_gnn_batched(str_, seed, env, indexes, model=None, model_s=None, lanes: 
 
     t0 = time()
     results = explore_batch(env, model, model_s, indexes, smooth=smooth, batch=batch,
-                            t_max=t_max, k=k, lanes=lanes, chunk=chunk, seed=seed, stats=stats)
+                            t_max=t_max, k=k, lanes=lanes, chunk=chunk, seed=seed, mesh=mesh,
+                            stats=stats)
     wall = time() - t0
 
     path_cost = _protocol().path_cost

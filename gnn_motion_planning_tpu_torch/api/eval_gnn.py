@@ -94,6 +94,7 @@ def model_smooth(model_s, free, collided, old_path, env, iter: int = 5):
     if overflow:
         # a step needed more than the cheap budget: redo at the full budget,
         # whose counts are the protocol result
+        planner.overflow_redos += 1
         path, count, _ = _smooth_iterations(
             model_s, planner.project_full, scene, t(path_arr), args, L, iter
         )

@@ -21,6 +21,8 @@ overflowed (:meth:`Planner.smooth_full`).
 
 from __future__ import annotations
 
+import os
+
 import torch
 
 from gnn_motion_planning_tpu_torch.graphs.knn import build_rgg_edges
@@ -47,19 +49,27 @@ class Planner:
         self.state_free = kernels.batch_state_free
         self.round_core = make_explore_round_core(kernels, eps)
         self.round_lanes = make_explore_round_batch_chunked(kernels, eps)
-        # flat projection first where the kernels have bounds (the arms); on
-        # overflow the full one redoes the work. Envs without bounds (the
-        # mazes) have no cheap edge check, so both are the full sweep (JAX
-        # api/planner_bundle.py:94-108 with no edge_free_cheap).
-        flat = kernels.bounds is not None
+        # the fast projection first, the full one redoing the work on
+        # overflow (JAX api/planner_bundle.py:83-108): the flat sweep where
+        # the kernels have bounds (the arms) unless GMP_FLAT_PROJ=0, else
+        # the dense sweep at the K_CHEAP budget where the env has a cheap
+        # edge check (ur5, snake7), else the full sweep (the mazes; kuka7,
+        # kuka13 and kuka14, whose full budget is already small)
+        flat = kernels.bounds is not None and os.environ.get("GMP_FLAT_PROJ", "auto") != "0"
         self.project_full = make_projection_core(kernels, eps)
         self.project_lanes_full = make_projection_lanes(kernels, eps, flat=False)
         if flat:
             self.project_cheap = make_projection_core_flat(kernels, eps)
             self.project_lanes_cheap = make_projection_lanes(kernels, eps, flat=True)
+        elif kernels.edge_free_cheap is not None:
+            self.project_cheap = make_projection_core(kernels, eps, cheap=True)
+            self.project_lanes_cheap = make_projection_lanes(kernels, eps, flat=False, cheap=True)
         else:
             self.project_cheap = self.project_full
             self.project_lanes_cheap = self.project_lanes_full
+        # smoothings redone at the full budget after a fast projection
+        # overflowed (``api/eval_gnn.py::model_smooth`` counts them)
+        self.overflow_redos = 0
 
     # -- the batched sweep's redo (api/batched.py) --------------------------
 

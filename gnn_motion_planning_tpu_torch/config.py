@@ -1,4 +1,5 @@
-"""Seeding and the host RNG stream (port of gnn_motion_planning_tpu/config.py).
+"""Typed configuration, seeding and the host RNG stream (port of
+gnn_motion_planning_tpu/config.py).
 
 Host sampling stays on numpy's legacy MT19937 ``RandomState`` and consumes
 it in the same call order as the JAX package, so for a given seed the
@@ -7,9 +8,50 @@ rejection-sampled node set is the same stream on both sides.
 
 from __future__ import annotations
 
+import dataclasses
 import random as _pyrandom
 
 import numpy as np
+
+
+@dataclasses.dataclass(frozen=True)
+class TrainConfig:
+    """Training hyperparameters (reference config.py:19-27)."""
+
+    batch_size: int = 8
+    gamma: float = 2.0
+    alpha: float = 1.0
+    n: int = 1
+    lr: float = 1e-3
+    adam_eps: float = 1e-8
+    anchor_num: int = 64
+
+
+@dataclasses.dataclass(frozen=True)
+class NNConfig:
+    """Model width defaults (reference config.py:39-45)."""
+
+    layer_num: int = 1
+    embed_dim: int = 32
+    feature_dim: int = 32
+    hidden_dim: int = 32
+    output_dim: int = 32
+
+
+@dataclasses.dataclass(frozen=True)
+class PlannerConfig:
+    """GNN planner defaults (reference eval_gnn.py:96-97,169)."""
+
+    batch: int = 500
+    t_max: int = 500
+    k: int = 30
+    loop: int = 5
+    smoother: str = "model"
+
+
+train_config = TrainConfig()
+nn_config = NNConfig()
+planner_config = PlannerConfig()
 
 
 class HostRNG:

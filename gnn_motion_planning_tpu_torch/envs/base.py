@@ -138,22 +138,36 @@ def make_fixed_step_edge_free(
 
 
 def rejection_sample(env, n: int, need_negative: bool, batch_free, adaptive: bool):
-    """``n`` free configurations drawn uniformly in ``env.pose_range`` from
-    ``env.rng``, and the rejected draws (JAX envs/kuka.py:388-451,
-    envs/snake.py:542-587). Draws go in chunks through ``batch_free``
-    ((n, d) float64 -> (n,) bool); the state is restored and the consumed
-    prefix re-drawn past the n-th acceptance, so the stream, and the count
-    of every draw taken, equal a one-at-a-time loop's. ``adaptive`` sizes a
-    chunk by the env's accept rate (a device oracle, one call for most
-    requests); otherwise a chunk is twice what is still needed (the native
-    core, which pays per draw)."""
+    """``n`` free configurations drawn uniformly in ``env.pose_range``, and
+    the rejected draws (JAX envs/kuka.py:388-451, envs/snake.py:542-587).
 
-    rng = env.rng
-    if rng is None:
-        raise ValueError("set env.rng (config.problem_rng) before sampling")
-    pr = np.array(env.pose_range)
+    With ``env.rng`` None the draws come one at a time from numpy's global
+    stream, one check each (JAX envs/kuka.py:404-415). Otherwise they come
+    from ``env.rng`` in chunks through ``batch_free`` ((n, d) float64 ->
+    (n,) bool); the state is restored and the consumed prefix re-drawn past
+    the n-th acceptance, so the stream, and the count of every draw taken,
+    equal a one-at-a-time loop's. ``adaptive`` sizes a chunk by the env's
+    accept rate (a device oracle, one call for most requests); otherwise a
+    chunk is twice what is still needed (the native core, which pays per
+    draw). Each chunk goes through ``env._bias_draws`` at the problem's
+    draw position ``env._draw_pos`` (an opt-in ``sampler_bias``; the
+    identity without one), a function of each row and its position alone,
+    so the accepted stream does not depend on the chunking."""
+
     samples: list = []
     negative: list = []
+    rng = env.rng
+    if rng is None:
+        while len(samples) < n:
+            s = env.uniform_sample()
+            env.collision_check_count += 1
+            if batch_free(s[None])[0]:
+                samples.append(s)
+            elif need_negative:
+                negative.append(s)
+        return (samples, negative) if need_negative else samples
+
+    pr = np.array(env.pose_range)
     need = n
     rate = getattr(env, "_accept_rate", None)
     while need > 0:
@@ -162,7 +176,8 @@ def rejection_sample(env, n: int, need_negative: bool, batch_free, adaptive: boo
         else:
             chunk = max(2 * need, 512)
         state = rng.get_state()
-        draws = rng.uniform(pr[:, 0], pr[:, 1], (chunk, env.config_dim))
+        draws = env._bias_draws(rng.uniform(pr[:, 0], pr[:, 1], (chunk, env.config_dim)),
+                                offset=env._draw_pos)
         ok = batch_free(draws)
         n_acc = int(ok.sum())
         rate = n_acc / chunk if rate is None else 0.8 * rate + 0.2 * n_acc / chunk
@@ -175,6 +190,7 @@ def rejection_sample(env, n: int, need_negative: bool, batch_free, adaptive: boo
             need = 0
         else:
             need -= n_acc
+        env._draw_pos += len(draws)
         env.collision_check_count += len(draws)
         samples.extend(draws[ok])
         negative.extend(draws[~ok])

@@ -49,6 +49,14 @@ _FAR_MARGIN = 1e-3
 _VECTORISED = {10: 0, 24: 24, 43: 40}
 
 
+def point_box_sq_dist(p, center, half):
+    """Squared distance from points to an AABB's surface, 0 inside (JAX
+    envs/geometry.py:18-22): the squares summed in order."""
+
+    d = torch.clamp_min((p - center).abs() - half, 0.0)
+    return (d * d).sum(dim=-1)
+
+
 def _sum_sq_pair_first(d):
     """``fma(d2, d2, fma(d0, d0, d1 * d1))`` over the last axis."""
 

@@ -351,3 +351,12 @@ def lane_capsules(chain: ChainParams, q: torch.Tensor, base_rot=None, base_trans
                                trig)
     C = p0.shape[1]
     return p0.reshape(L, B, C, 3).contiguous(), p1.reshape(L, B, C, 3).contiguous()
+
+
+def end_effector(chain: ChainParams, q: torch.Tensor, link_index: int = -1) -> torch.Tensor:
+    """World translation of link frame ``link_index`` for configurations q
+    (B, dof): (B, 3) (JAX envs/kinematics.py:161-163, per configuration
+    there)."""
+
+    _, ts = fk_link_frames(chain, q)
+    return ts[:, link_index]

@@ -35,6 +35,7 @@ from gnn_motion_planning_tpu_torch.envs.base import (
 )
 from gnn_motion_planning_tpu_torch.envs.kinematics import (
     ChainParams,
+    capsules_world,
     chain_from_model,
     link_translations,
     norm_last,
@@ -171,6 +172,9 @@ class KukaEnv:
         self.episode_i = 0
         self._native = None  # host sampling oracle; None: the device oracle
         self._kernels = None
+        # opt-in narrow-pocket draws (``_bias_draws``); the protocol never sets it
+        self.sampler_bias = None
+        self._draw_pos = 0  # the problem's draws so far, anchoring ``_bias_draws``
 
     def _load_problems(self, map_file: str):
         with open(asset_path(map_file), "rb") as f:
@@ -187,9 +191,17 @@ class KukaEnv:
     def init_new_problem(self, index: Optional[int] = None):
         if index is None:
             index = self.episode_i
-        self.index = index
         obstacles, start, goal, path = self.problems[index]
         self.episode_i = (self.episode_i + 1) % len(self.problems)
+        self.set_problem_data(obstacles, start, goal, path)
+        self.index = index
+        return self.get_problem()
+
+    def set_problem_data(self, obstacles, start, goal, path=None):
+        """A problem given by its boxes and endpoints (JAX envs/kuka.py:
+        209-222; ``init_new_problem`` loads a stored one through it)."""
+
+        self.index = -1
         self.collision_check_count = 0
         self.collision_point = None
         self.obstacles = obstacles
@@ -197,6 +209,7 @@ class KukaEnv:
         self.goal_state = np.asarray(goal)
         self.path = path
         self._scene = make_box_scene(obstacles, self.device)
+        self._draw_pos = 0
         if self._native is not None:
             if obstacles:
                 centers = np.stack([_coerce_vec3(b) for _, b in obstacles])
@@ -204,7 +217,6 @@ class KukaEnv:
             else:
                 centers = halfs = np.zeros((0, 3))
             self._native.set_scene(centers, halfs)
-        return self.get_problem()
 
     def device_scene(self) -> BoxScene:
         return self._scene
@@ -237,6 +249,64 @@ class KukaEnv:
 
         return rejection_sample(self, n, need_negative, self._batch_free,
                                 adaptive=self._native is None)
+
+    # every this-many-th draw is remapped when sampler_bias = "endpoint"
+    _ENDPOINT_EVERY = 4
+
+    def _bias_draws(self, draws: np.ndarray, offset: int = 0) -> np.ndarray:
+        """The opt-in "endpoint" sampler bias (JAX envs/kuka.py:343-379;
+        the identity while ``sampler_bias`` is None). Every
+        ``_ENDPOINT_EVERY``-th draw by its position in the problem's stream
+        (``offset`` is the position of the first row) is moved near init or
+        goal, alternately: per joint ``anchor + (2u - 1)^3 * 0.25 * span``
+        for the draw's own uniform u, clipped to the limits. A function of
+        each row and its position, so chunking does not change it."""
+
+        if self.sampler_bias is None:
+            return draws
+        if self.sampler_bias != "endpoint":
+            raise ValueError(f"unknown sampler_bias {self.sampler_bias!r}")
+        draws = draws.copy()
+        pos = offset + np.arange(len(draws))
+        idx = np.nonzero(pos % self._ENDPOINT_EVERY == 0)[0]
+        if not len(idx):
+            return draws
+        pr = np.array(self.pose_range)
+        span = pr[:, 1] - pr[:, 0]
+        u = (draws[idx] - pr[:, 0]) / span
+        off = (2.0 * u - 1.0) ** 3 * (0.25 * span)
+        toward_goal = ((pos[idx] // self._ENDPOINT_EVERY) % 2 == 1)[:, None]
+        anchor = np.where(toward_goal, np.asarray(self.goal_state, np.float64),
+                          np.asarray(self.init_state, np.float64))
+        draws[idx] = np.clip(anchor + off, pr[:, 0], pr[:, 1])
+        return draws
+
+    def sample_empty_points(self):
+        """One free configuration from the global-or-owned stream, a check
+        a draw (JAX envs/kuka.py:453-457)."""
+
+        while True:
+            s = self.uniform_sample()
+            if self._state_fp(s):
+                return s
+
+    def aug_path(self):
+        """The stored demo path densified to RRT_EPS steps (reference
+        kuka_env.py:118-131, JAX envs/kuka.py:467-485)."""
+
+        result = [self.init_state]
+        path = np.array(self.path)
+        agent = np.array(path[0])
+        next_index = 1
+        while next_index < len(path):
+            if np.linalg.norm(path[next_index] - agent) <= self.RRT_EPS:
+                agent = path[next_index]
+                next_index += 1
+            else:
+                agent = agent + self.RRT_EPS * (path[next_index] - agent) / np.linalg.norm(
+                    path[next_index] - agent)
+            result.append(np.array(agent))
+        return result
 
     def _batch_free(self, draws: np.ndarray) -> np.ndarray:
         if self._native is not None:
@@ -351,6 +421,23 @@ class KukaEnv:
         no_collision = self._edge_fp(state, new_state)
         done = no_collision and self.in_goal_region(new_state)
         return new_state, action, no_collision, done
+
+    def _render_segments(self, config):
+        """World-frame capsule axis segments of one configuration, (C, 3)
+        twice, for the plots (host FK on the CPU chain)."""
+
+        p0, p1, _ = capsules_world(self.host_chain, torch.as_tensor(
+            np.asarray(config, np.float32)).reshape(1, -1))
+        return p0[0].numpy(), p1[0].numpy()
+
+    def plot(self, path, make_gif: bool = False, save_path=None):
+        """Headless render of the path sweep (reference kuka_env.py:281-346;
+        ``utils/plot.py::plot_arm_path``): the RGBA frames with
+        ``make_gif``, else one figure (to ``save_path``) and []."""
+
+        from gnn_motion_planning_tpu_torch.utils.plot import plot_arm_path
+
+        return plot_arm_path(self, path, make_gif=make_gif, save_path=save_path)
 
     def _batch_edge_free(self, a: np.ndarray, b: np.ndarray):
         """(free (n,), counts (n,)) of the edges a[i] -> b[i] under the

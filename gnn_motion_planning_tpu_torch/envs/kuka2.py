@@ -20,6 +20,7 @@ import torch
 from gnn_motion_planning_tpu_torch.envs.base import EnvKernels, lane_oracle
 from gnn_motion_planning_tpu_torch.envs.geometry import contact_pairs, pair_contacts, vector_tail
 from gnn_motion_planning_tpu_torch.envs.kinematics import (
+    capsules_world,
     chain_from_model,
     lane_capsules,
     link_translations,
@@ -95,6 +96,16 @@ class Kuka2Env(KukaEnv):
         dof = self.config_dim // 2
         return (link_translations(self.host_chain, q[:, :dof], base_trans=self.base1),
                 link_translations(self.host_chain, q[:, dof:], base_trans=self.base2))
+
+    def _render_segments(self, config):
+        """Both arms' capsule axis segments, arm one's first (JAX
+        envs/kuka2.py:168-176)."""
+
+        q = torch.as_tensor(np.asarray(config, np.float32)).reshape(1, -1)
+        dof = self.config_dim // 2
+        arms = [capsules_world(self.host_chain, q[:, :dof], base_trans=self.base1.cpu()),
+                capsules_world(self.host_chain, q[:, dof:], base_trans=self.base2.cpu())]
+        return tuple(np.concatenate([a[i][0].numpy() for a in arms]) for i in (0, 1))
 
     def robot_points(self, configs) -> np.ndarray:
         a, b = self._arm_translations(configs)

@@ -543,6 +543,36 @@ class MazeEnv:
     def get_robot_points(self, config):
         return [config]
 
+    def plot(self, path, make_gif: bool = False, save_path=None):
+        """Headless render of the path sweep over the occupancy map
+        (``utils/plot.py::plot_maze_path``; the reference MazeEnv has none,
+        this gives it the other envs' protocol)."""
+
+        from gnn_motion_planning_tpu_torch.utils.plot import plot_maze_path
+
+        return plot_maze_path(self, path, make_gif=make_gif, save_path=save_path)
+
+    # -- map rasters (model inputs; JAX envs/maze.py:644-658) ----------------
+
+    voxel_r = 1.0 / 15
+
+    def obs_map(self, resolution=voxel_r):
+        """(points (n, 2) on a ``resolution`` lattice of [-1, 1)^2, whether
+        each lies in an occupied cell)."""
+
+        xs = np.arange(-1, 1, resolution)
+        xs, ys = np.meshgrid(xs, xs)
+        points = np.stack([xs.reshape(-1), ys.reshape(-1)], axis=-1)
+        coords = np.minimum(((points + 1.0) * self.width / 2.0).astype(int), self.width - 1)
+        return points, self.map[coords[:, 0], coords[:, 1]] == 1
+
+    def free_map(self, w: int = 15):
+        """The centres of the free cells of a ``w`` x ``w`` map."""
+
+        fx, fy = np.nonzero(self.map == 0)
+        pts = np.stack([fx, fy], axis=-1) * 2.0 / w + (1.0 / w - 1.0)
+        return [p for p in pts]
+
     # -- collision oracle (numpy host mirror of the device functions) --------
 
     def _transform(self, state):

@@ -10,22 +10,29 @@ capsule links.
 
 A configuration collides when a capsule touches an occupied cell, through
 ``ops/capsule.py::capsules_hit`` over the problem's occupied cells as
-boxes (one launch of its kernel on the card; the JAX package tests a 3 x 3
-window of cells around each capsule, which decides the same), or when
-capsules of links 4 or more hops apart touch, as batched tensor ops.
-Sampling goes through the device oracle.
+boxes (one launch of its kernel on the card), or when capsules of links 4
+or more hops apart touch, as batched tensor ops. The JAX package's scene is
+the 3 x 3 window of cells around each capsule (:class:`SnakeGridScene`,
+:func:`snake_state_free_grid`), which decides the same; the oracle takes it
+when it is passed. Sampling goes through the device oracle, optionally
+biased toward straight snakes or the corridor joining init and goal
+(``sampler_bias``).
 """
 
 from __future__ import annotations
 
 import copy
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
 
 from gnn_motion_planning_tpu_torch.envs.base import EnvKernels, lane_oracle
-from gnn_motion_planning_tpu_torch.envs.geometry import contact_pairs, pair_contacts
+from gnn_motion_planning_tpu_torch.envs.geometry import (
+    contact_pairs,
+    pair_contacts,
+    seg_box_sq_dist,
+)
 from gnn_motion_planning_tpu_torch.envs.kinematics import (
     chain_from_model,
     joint_angles,
@@ -40,8 +47,77 @@ from gnn_motion_planning_tpu_torch.utils.assets import asset_path
 
 HEIGHT = 0.5
 GRID_W = 15
+CELL = 1.4
+CELL_ORIGIN = -10.5  # the centre of cell index 0 along each axis
 # the JAX package's grid scene holds at most this many occupied cells
 MAX_CELLS = 160
+# the 3 x 3 window of cell offsets around a capsule's cell
+_WIN = np.stack(np.meshgrid(np.arange(-1, 2), np.arange(-1, 2), indexing="ij"), -1).reshape(9, 2)
+# a cell centre a grid index, computed in float64 then cast: bit for bit the
+# centres make_snake_scene stores
+_COORDS = np.float32(CELL * np.arange(GRID_W) + CELL_ORIGIN)
+_HALF = (0.7, 0.7, 1.0)
+
+
+class SnakeGridScene(NamedTuple):
+    """The occupied cells as a grid (JAX envs/snake.py:61-80): ``cells``,
+    the flat ids of the occupied cells padded with -1, and ``row_masks``,
+    bit j of entry i set when cell (i, j) is occupied. The snake is planar
+    and every capsule has half length plus radius at most 0.27, so a capsule
+    can touch only the cells within one index of its midpoint's nearest
+    cell: a 3 x 3 window decides as the whole scan. With lanes both have a
+    leading lane axis (``envs/base.py::stack_scenes``)."""
+
+    cells: torch.Tensor  # (MAX_CELLS,) int32
+    row_masks: torch.Tensor  # (GRID_W,) int32
+
+
+def make_snake_grid_scene(occ_map: np.ndarray, device=None, cap: int = MAX_CELLS) -> SnakeGridScene:
+    """The grid scene of an occupancy map (JAX envs/snake.py:92-100)."""
+
+    occ = np.asarray(occ_map)
+    flat = np.flatnonzero(occ.reshape(-1) != 0).astype(np.int32)
+    if len(flat) > cap:
+        raise ValueError(f"{len(flat)} occupied cells exceed cap {cap}")
+    cells = np.full(cap, -1, np.int32)
+    cells[: len(flat)] = flat
+    masks = (np.asarray(occ != 0, np.int64) << np.arange(occ.shape[-1])).sum(1)
+    return SnakeGridScene(torch.as_tensor(cells, device=device),
+                          torch.as_tensor(masks.astype(np.int32), device=device))
+
+
+def grid_contacts(p0, p1, r, scene: SnakeGridScene):
+    """(L, B) bool: any capsule of (L, B, C, 3) endpoints within its radius
+    of an occupied cell of its 3 x 3 window (JAX envs/snake.py:148-178),
+    as tensor ops. The window's centres come from the float64-derived table
+    and the nearest cell rounds half to even, as ``jnp.round``."""
+
+    dev = p0.device
+    mid = 0.5 * (p0[..., :2] + p1[..., :2])  # (L, B, C, 2)
+    ci = torch.clamp(torch.round((mid - CELL_ORIGIN) / CELL).to(torch.int64), 0, GRID_W - 1)
+    cand = ci[..., None, :] + torch.as_tensor(_WIN, device=dev)  # (L, B, C, 9, 2)
+    in_grid = ((cand >= 0) & (cand < GRID_W)).all(-1)
+    ix = cand.clamp(0, GRID_W - 1)
+    L = p0.shape[0]
+    rows = scene.row_masks.to(torch.int64).reshape(L, 1, 1, GRID_W)
+    word = torch.gather(rows.expand(ix.shape[:3] + (GRID_W,)), 3, ix[..., 0])
+    occupied = (((word >> ix[..., 1]) & 1) != 0) & in_grid
+    coords = torch.as_tensor(_COORDS, device=dev)
+    centers = torch.cat([coords[ix], torch.zeros_like(coords[ix][..., :1])], -1)
+    halfs = torch.tensor(_HALF, dtype=torch.float32, device=dev).expand_as(centers)
+    d2 = seg_box_sq_dist(p0[..., None, :], p1[..., None, :], centers, halfs)  # (L, B, C, 9)
+    return (occupied & (d2 < (r ** 2)[:, None])).any(-1).any(-1)
+
+
+def snake_state_free_grid(chain, pairs, scene: SnakeGridScene, qs, lower, upper):
+    """(free, n_checks) of configurations (L, B, 7) through the 3 x 3 grid
+    window (JAX envs/snake.py:134-184) and the self pairs
+    (``geometry.contact_pairs``)."""
+
+    valid = ((qs >= lower) & (qs <= upper)).all(dim=-1)
+    p0, p1, r = snake_capsules(chain, qs)
+    box = grid_contacts(p0, p1, r, scene)
+    return valid & ~box & ~pair_contacts(p0, p1, pairs), valid.to(torch.int32)
 
 
 def make_snake_scene(occ_map: np.ndarray, device) -> BoxScene:
@@ -89,13 +165,17 @@ def snake_capsules(chain, qs: torch.Tensor):
 
 def make_snake_kernels(chain, pair_mask: np.ndarray, lower, upper, rrt_eps: float,
                        k_max: int) -> EnvKernels:
-    """JAX envs/snake.py:187-217, batched: limits, cells and self pairs."""
+    """JAX envs/snake.py:187-217, batched: limits, cells and self pairs. A
+    :class:`SnakeGridScene` takes the 3 x 3 window (as JAX's
+    ``state_free`` does, :187-191); the box scene goes through entry A."""
 
     r = chain.cap_r
     pairs = contact_pairs(pair_mask, r.cpu().numpy(), r.device)
 
     @lane_oracle
     def batch_state_free(scene, qs):
+        if isinstance(scene, SnakeGridScene):
+            return snake_state_free_grid(chain, pairs, scene, qs, lower, upper)
         valid = ((qs >= lower) & (qs <= upper)).all(dim=-1)
         p0, p1, _ = snake_capsules(chain, qs)
         box = capsules_hit(p0, p1, r, scene.centers, scene.halfs, scene.mask)
@@ -158,6 +238,8 @@ class SnakeEnv(KukaEnv):
         self.goal_state = np.asarray(goal)
         self.obstacles = np.argwhere(occ_map == 1) / occ_map.shape[0] - 0.5
         self._scene = make_snake_scene(occ_map, self.device)
+        self._corr_cells = None
+        self._draw_pos = 0
 
     def get_problem(self):
         """The map and the endpoints (JAX envs/snake.py:310-315)."""
@@ -168,6 +250,23 @@ class SnakeEnv(KukaEnv):
         """The base position (q0, q1), a copy (JAX envs/snake.py:341-344)."""
 
         return copy.deepcopy(config[:2])
+
+    def _render_segments(self, config):
+        """World-frame capsule segments of one configuration under the
+        reference's mapping (JAX envs/snake.py:719-731)."""
+
+        q = torch.as_tensor(np.asarray(config, np.float32)).reshape(1, -1)
+        p0, p1, _ = snake_capsules(self.host_chain, q)
+        return p0[0].numpy(), p1[0].numpy()
+
+    def plot(self, map=None, path=None, make_gif: bool = False, save_path=None):
+        """Headless top-down render (reference snake_env.py:287-330
+        signature, ``utils/plot.py::plot_snake_path``)."""
+
+        from gnn_motion_planning_tpu_torch.utils.plot import plot_snake_path
+
+        occ = self.map if map is None else map
+        return plot_snake_path(self, occ, path, make_gif=make_gif, save_path=save_path)
 
     def robot_points(self, configs) -> np.ndarray:
         """``get_robot_points`` of many configurations (n, 7): (n, 2)."""
@@ -191,3 +290,119 @@ class SnakeEnv(KukaEnv):
         toks[:n] = self.obstacles
         mask[:n] = True
         return toks, mask
+
+    # -- the opt-in sampler biases (JAX envs/snake.py:356-537) -------------
+
+    # every this-many-th draw is transformed: "straight" (every 3rd),
+    # "corridor" (every 2nd)
+    _BIAS_EVERY = 3
+    _CORRIDOR_EVERY = 2
+
+    def _corridor_cells(self) -> tuple:
+        """The problem's corridor: the free cells on near-shortest
+        4-connected grid paths (slack 2) between the init and goal base
+        cells, as ((n, 2) cell centres, (n, 2) unit goal-ward directions,
+        zero where the BFS descent is undefined). Cached; the key holds the
+        map itself and copies of init and goal, so a new problem or
+        ``set_random_init_goal`` is never served a stale corridor."""
+
+        key = getattr(self, "_corr_key", None)
+        if (self._corr_cells is not None and key is not None and key[0] is self.map
+                and np.array_equal(key[1], self.init_state)
+                and np.array_equal(key[2], self.goal_state)):
+            return self._corr_cells
+        occ = np.asarray(self.map) != 0
+        w = occ.shape[0]
+        centers = 1.4 * np.arange(w) - 10.5
+        unreached = np.iinfo(np.int32).max
+
+        def cell_of(xy):
+            return tuple(int(np.clip(np.round((c + 10.5) / 1.4), 0, w - 1)) for c in xy)
+
+        def bfs(start):
+            d = np.full((w, w), unreached, np.int64)
+            if occ[start]:
+                return d
+            d[start] = 0
+            q = [start]
+            while q:
+                nq = []
+                for i, j in q:
+                    for di, dj in ((1, 0), (-1, 0), (0, 1), (0, -1)):
+                        ni, nj = i + di, j + dj
+                        if 0 <= ni < w and 0 <= nj < w and not occ[ni, nj]:
+                            if d[ni, nj] > d[i, j] + 1:
+                                d[ni, nj] = d[i, j] + 1
+                                nq.append((ni, nj))
+                q = nq
+            return d
+
+        ci, cg = cell_of(self.init_state[:2]), cell_of(self.goal_state[:2])
+        d_i, d_g = bfs(ci), bfs(cg)
+        best = d_i[cg]
+        sel = ~occ if best >= unreached else (d_i + d_g) <= best + 2
+        ij = np.argwhere(sel)
+        cells = np.stack([centers[ij[:, 0]], centers[ij[:, 1]]], axis=1)
+        dirs = np.zeros_like(cells)
+        for r, (i, j) in enumerate(ij):
+            if d_g[i, j] >= unreached or d_g[i, j] == 0:
+                continue
+            steps = [(di, dj) for di, dj in ((1, 0), (-1, 0), (0, 1), (0, -1))
+                     if 0 <= i + di < w and 0 <= j + dj < w
+                     and d_g[i + di, j + dj] == d_g[i, j] - 1]
+            if steps:
+                v = np.mean(np.asarray(steps, np.float64), axis=0)
+                nrm = np.hypot(*v)
+                if nrm > 0:
+                    dirs[r] = v / nrm
+        self._corr_key = (self.map, np.array(self.init_state, copy=True),
+                          np.array(self.goal_state, copy=True))
+        self._corr_cells = (cells.astype(np.float64), dirs)
+        return self._corr_cells
+
+    def _bias_draws(self, draws: np.ndarray, offset: int = 0) -> np.ndarray:
+        """The opt-in narrow-passage biases (JAX envs/snake.py:449-537), each
+        a function of a draw and its position in the problem's stream
+        (``offset`` is the first row's), so chunking does not change them.
+
+        "straight": the five angles of every ``_BIAS_EVERY``-th draw go to
+        t^3 / pi^2. "corridor": the base of every ``_CORRIDOR_EVERY``-th draw
+        goes into a corridor cell (``_corridor_cells``; the x draw picks the
+        cell, the fractional parts the offset, along the cell's tangent and a
+        quarter cell across it), its angles to a pose aligned with the
+        tangent plus a small squashed noise, or the straight squash where
+        the cell has no tangent."""
+
+        bias = self.sampler_bias
+        if bias is None:
+            return draws
+        draws = draws.copy()
+        pos = offset + np.arange(len(draws))
+        if bias == "straight":
+            idx = np.nonzero(pos % self._BIAS_EVERY == 0)[0]
+            draws[idx, 2:] = draws[idx, 2:] ** 3 / (np.pi**2)
+            return draws
+        if bias != "corridor":
+            raise ValueError(f"unknown sampler_bias {bias!r}")
+        cells, dirs = self._corridor_cells()
+        idx = np.nonzero(pos % self._CORRIDOR_EVERY == 0)[0]
+        u = (draws[idx, :2] + 9.0) / 18.0
+        t = u[:, 0] * len(cells)
+        c = np.minimum(t.astype(np.int64), len(cells) - 1)
+        fx, fy = t - c, u[:, 1]
+        ang = draws[idx, 2:]
+        d = dirs[c]
+        aimed = (d[:, 0] != 0.0) | (d[:, 1] != 0.0)
+        phi = np.arctan2(d[:, 1], d[:, 0])
+        delta = np.mod(np.pi / 2 - phi + np.pi / 2, np.pi) - np.pi / 2
+        tang = np.where(aimed[:, None], d, np.asarray([[0.0, 1.0]]))
+        perp = np.stack([-tang[:, 1], tang[:, 0]], 1)
+        off = 1.4 * (fx - 0.5)[:, None] * tang + 0.35 * (fy - 0.5)[:, None] * perp
+        off_uni = 1.4 * (np.stack([fx, fy], 1) - 0.5)
+        xy = cells[c] + np.where(aimed[:, None], off, off_uni)
+        draws[idx, :2] = np.clip(xy, -9.0, 9.0)
+        noise = 0.4 * ang**3 / (np.pi**2)
+        zero = np.zeros_like(delta)
+        slab = np.stack([-delta / 2, -delta / 2, 0.75 * delta, zero, zero], 1)
+        draws[idx, 2:] = np.where(aimed[:, None], slab + noise, ang**3 / (np.pi**2))
+        return draws

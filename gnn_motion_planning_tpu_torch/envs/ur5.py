@@ -152,6 +152,13 @@ class UR5Env(KukaEnv):
     def __str__(self):
         return "ur5"
 
+    def init_new_problem_with_config(self, start, goal, obstacles):
+        """A problem given by its endpoints and boxes (reference
+        ur5_env.py:84-102, JAX envs/ur5.py:229-233)."""
+
+        self.set_problem_data(obstacles, start, goal)
+        return self.get_problem()
+
     def kernels(self) -> EnvKernels:
         if self._kernels is None:
             self._kernels = make_ur5_kernels(self.chain, self.geom, self.RRT_EPS, self._k_max())

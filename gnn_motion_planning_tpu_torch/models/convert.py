@@ -86,14 +86,34 @@ def read_checkpoint(relpath: str) -> dict:
     (str2name.py:25 vs data/weights/), so a missing ``_attv3.pt`` falls back
     to the ``_att.pt`` beside it (JAX models/convert.py:76-81)."""
 
+    sd = torch.load(_checkpoint_path(relpath), map_location="cpu", weights_only=True)
+    return {k: v.detach().float() for k, v in sd.items()}
+
+
+def _checkpoint_path(relpath: str):
     try:
-        path = asset_path(relpath)
+        return asset_path(relpath)
     except FileNotFoundError:
         if not relpath.endswith("_attv3.pt"):
             raise
-        path = asset_path(relpath.replace("_attv3.pt", "_att.pt"))
-    sd = torch.load(path, map_location="cpu", weights_only=True)
-    return {k: v.detach().float() for k, v in sd.items()}
+        return asset_path(relpath.replace("_attv3.pt", "_att.pt"))
+
+
+def load_torch_checkpoint(pt_path) -> dict:
+    """A torch ``.pt`` state dict as a nested tree of float32 numpy arrays
+    (JAX models/convert.py:45-56)."""
+
+    sd = torch.load(pt_path, map_location="cpu", weights_only=True)
+    return nest({k: v.detach().numpy().astype(np.float32) for k, v in sd.items()
+                 if hasattr(v, "detach") and v.dtype.is_floating_point})
+
+
+def load_params(relpath: str) -> dict:
+    """The nested numpy parameters of a reference-style checkpoint path
+    (JAX models/convert.py:59-85, without its npz cache: the file is read
+    each call), with ``read_checkpoint``'s maze3 fallback."""
+
+    return load_torch_checkpoint(_checkpoint_path(relpath))
 
 
 def load_checkpoint(module: nn.Module, relpath: str) -> nn.Module:

@@ -214,9 +214,26 @@ def explorer_forward(
         torch.cat([decode[src], decode[src] - decode[dst], edge_free_code], dim=-1),
     ).squeeze(-1)
 
-    n = v.shape[0]
-    policy = torch.zeros((n + 1, n), dtype=v.dtype, device=v.device)
-    row = torch.where(e_alive, dst, n)  # dead edges land in the dropped row
+    return scatter_policy(score, src, dst, e_alive, v.shape[0])
+
+
+def scatter_policy(score, src, dst, e_alive, n: int) -> torch.Tensor:
+    """The (n, n) policy with ``score[e]`` at ``[dst[e], src[e]]`` for the
+    live edges, zero elsewhere (JAX ``.at[row, src].set(score,
+    mode="drop")``, models/explorer.py:239-241).
+
+    XLA's scatter-set keeps the last of duplicate updates, and ``jax.grad``
+    sends the gradient to that one alone; ``index_put_`` promises no winner
+    on the card and sends a gradient to every duplicate. So only the last
+    live edge of each (dst, src) pair writes: the largest edge index a key,
+    an order-free reduction; the others go to a row that is dropped."""
+
+    idx = torch.arange(dst.shape[0], device=dst.device)
+    key = torch.where(e_alive, dst.long() * n + src.long(), n * n)  # dead: one spare key
+    last = torch.full((n * n + 1,), -1, dtype=idx.dtype, device=idx.device)
+    last = last.scatter_reduce(0, key, idx, "amax")
+    row = torch.where(e_alive & (last[key] == idx), dst, n)
+    policy = torch.zeros((n + 1, n), dtype=score.dtype, device=score.device)
     policy.index_put_((row, src), score)
     return policy[:n]
 

@@ -22,25 +22,29 @@ from gnn_motion_planning_tpu_torch.envs.kinematics import norm_last
 _CONVERGED = np.float32(1e-5)
 
 
-def _resolve(okA, cA, okB, cB, ok2, c2, interior, dnorm, count):
-    """Sequential accept scan (gnn_smooth.py:272-282) on host arrays:
-    returns (accepted (L,) bool, count, diff float32)."""
+def _resolve(okA, cA, okB, cB, ok2, c2, interior, dnorm, count, ovA, ovB, ov2):
+    """Sequential accept scan (gnn_smooth.py:95-111) on host arrays:
+    returns (accepted (L,) bool, count, diff float32, overflow). A check's
+    overflow (the cheap budget's) counts only where its result is used."""
 
     L = len(okA)
     accepted = np.zeros(L, bool)
     prev_acc = False
+    overflow = False
     diff = np.float32(0.0)
     for i in range(L):
         ok1 = okB[i] if prev_acc else okA[i]
         c1 = cB[i] if prev_acc else cA[i]
+        ov1 = ovB[i] if prev_acc else ovA[i]
         acc = bool(interior[i] and ok1 and ok2[i])
         if interior[i]:
             count += int(c1) + (int(c2[i]) if ok1 else 0)
+            overflow |= bool(ov1 or (ok1 and ov2[i]))
         if acc:
             diff = np.float32(diff + dnorm[i])
         accepted[i] = acc
         prev_acc = acc
-    return accepted, count, diff
+    return accepted, count, diff, overflow
 
 
 def _candidates(kernels, path, new_path, rrt_eps, n_path):
@@ -117,7 +121,8 @@ def _flat_checks(kernels, scene, qa, qb, e_int, rrt_eps, slots):
     return ok_e, cnt_e, total > slots
 
 
-def make_projection_lanes(kernels: EnvKernels, rrt_eps: float, flat: bool, slots: int = 4096):
+def make_projection_lanes(kernels: EnvKernels, rrt_eps: float, flat: bool, slots: int = 4096,
+                          cheap: bool = False):
     """proposed_path_smootherv2 (smoother.py:194-216) for P paths at once,
     each with its own scene lane (JAX ``jax.vmap(project_core)``,
     planner_bundle.py:365): ``project(scene, old_path (P, L, d), new_path,
@@ -134,12 +139,16 @@ def make_projection_lanes(kernels: EnvKernels, rrt_eps: float, flat: bool, slots
     gnn_smooth.py:151-308) checks only the states the sweep counts, packed
     into ``slots`` states a path; a path whose step needs more raises its
     overflow flag, and the caller redoes it at the full budget. Otherwise
-    every edge goes through the env's full ``edge_free`` (overflow never
-    set).
+    every edge goes through the env's full ``edge_free`` or, with ``cheap``
+    where the env has one, its ``edge_free_cheap`` at the K_CHEAP budget
+    (JAX ``make_projection_core(cheap=True)``, gnn_smooth.py:31-44): equal
+    decisions and counts unless a check whose result is used overflowed,
+    which sets the path's flag.
     """
 
     if flat:
         assert kernels.bounds is not None, "flat projection needs kernel bounds"
+    edge_cheap = kernels.edge_free_cheap if cheap else None
 
     def project(scene, old_path, new_path, n_path):
         P, L = old_path.shape[:2]
@@ -160,13 +169,18 @@ def make_projection_lanes(kernels: EnvKernels, rrt_eps: float, flat: bool, slots
             if flat:
                 ok, cnt, ovf = _flat_checks(kernels, scene, qa, qb, interior.repeat(1, 3),
                                             rrt_eps, slots)
+            elif edge_cheap is not None:
+                ok, cnt, ovf_e = edge_cheap(scene, qa, qb)
+                ovf = torch.zeros(P, dtype=torch.bool, device=dev)
             else:
                 ok, cnt = kernels.edge_free(scene, qa, qb)
                 ovf = torch.zeros(P, dtype=torch.bool, device=dev)
+            if edge_cheap is None or flat:
+                ovf_e = torch.zeros_like(ok)
             dnorm = norm_last(cand - new_path)
             host = torch.cat([
                 ok.to(torch.float64), cnt.to(torch.float64), dnorm.to(torch.float64),
-                interior.to(torch.float64), ovf.to(torch.float64)[:, None],
+                interior.to(torch.float64), ovf_e.to(torch.float64), ovf.to(torch.float64)[:, None],
             ], dim=1).cpu().numpy()
             accepted = np.zeros((P, L), bool)
             for i in range(P):
@@ -174,12 +188,14 @@ def make_projection_lanes(kernels: EnvKernels, rrt_eps: float, flat: bool, slots
                     continue
                 h = host[i]
                 okh, cnth = h[: 3 * L] > 0.5, h[3 * L : 6 * L].astype(np.int64)
-                overflow[i] |= bool(h[-1] > 0.5)
-                accepted[i], counts[i], diff = _resolve(
+                ovh = h[8 * L : 11 * L] > 0.5
+                accepted[i], counts[i], diff, ovf_i = _resolve(
                     okh[:L], cnth[:L], okh[L : 2 * L], cnth[L : 2 * L], okh[2 * L :],
                     cnth[2 * L :], h[7 * L : 8 * L] > 0.5,
                     h[6 * L : 7 * L].astype(np.float32), counts[i],
+                    ovh[:L], ovh[L : 2 * L], ovh[2 * L :],
                 )
+                overflow[i] |= bool(h[-1] > 0.5) or ovf_i
                 running[i] = step + 1 < steps[i] and not diff < _CONVERGED
             acc = torch.as_tensor(accepted, device=dev)
             path = torch.where(acc[..., None], cand, path)
@@ -195,13 +211,16 @@ def _first_lane(project, scene, old_path, new_path, n_path: int):
     return path[0], counts[0], overflow[0]
 
 
-def make_projection_core(kernels: EnvKernels, rrt_eps: float):
-    """proposed_path_smootherv2 (smoother.py:194-216) at the full edge
-    budget, for one path: returns ``(path, count, overflow)``, overflow
-    always False. The redo path when the flat projection overflows, and the
-    only core of envs without kernel bounds (the mazes)."""
+def make_projection_core(kernels: EnvKernels, rrt_eps: float, cheap: bool = False):
+    """proposed_path_smootherv2 (smoother.py:194-216) for one path: returns
+    ``(path, count, overflow)``. At the full edge budget (overflow always
+    False) it is the redo path when a faster projection overflows, and the
+    only core of envs without kernel bounds (the mazes). With ``cheap``
+    (and an env with ``edge_free_cheap``) every check runs at the K_CHEAP
+    budget: the same path and count whenever overflow comes back False
+    (JAX gnn_smooth.py:31-44)."""
 
-    lanes = make_projection_lanes(kernels, rrt_eps, flat=False)
+    lanes = make_projection_lanes(kernels, rrt_eps, flat=False, cheap=cheap)
 
     def project(scene, old_path, new_path, n_path: int):
         return _first_lane(lanes, scene, old_path, new_path, n_path)

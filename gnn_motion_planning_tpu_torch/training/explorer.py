@@ -7,11 +7,14 @@ edges against a Dijkstra oracle (reference train_explorer.py:96-211, loss
 at :172-177). A batch of such samples takes one Adam step; the loss is the
 mean over the batch of each sample's loss (the JAX package's ``vmap``, one
 sample at a time here). Gradients are autograd's over the forward's plain
-tensor ops, as the JAX package's are ``jax.grad``'s over XLA's.
+tensor ops, as the JAX package's are ``jax.grad``'s over XLA's. The step
+shards the batch over a ``dp`` mesh (``parallel/mesh.py``), averaging the
+gradients, as the JAX package's one pjit program does.
 """
 
 from __future__ import annotations
 
+import functools
 import pickle
 from typing import NamedTuple
 
@@ -19,7 +22,14 @@ import numpy as np
 import torch
 
 from gnn_motion_planning_tpu_torch import resolve_device
-from gnn_motion_planning_tpu_torch.models.explorer import Explorer, explorer_forward
+from gnn_motion_planning_tpu_torch.models.explorer import Explorer, ExplorerConfig, explorer_forward
+from gnn_motion_planning_tpu_torch.parallel.mesh import (
+    Mesh,
+    all_reduce_sum,
+    data_sharding,
+    make_mesh,
+    replicated,
+)
 from gnn_motion_planning_tpu_torch.training.optim import adam, apply_step, trainable_leaves
 
 _NEG = -1e9
@@ -56,13 +66,59 @@ def frontier_cross_entropy(model: Explorer, ex: ExplorerBatch, max_loop: int = 1
     return torch.stack(losses).mean()
 
 
-def train_step(model: Explorer, optimizer, leaves, ex: ExplorerBatch, loop: int) -> float:
-    """One optimiser step on a batch -> its loss."""
+def train_step(model: Explorer, optimizer, leaves, ex: ExplorerBatch, loop: int,
+               mesh: Mesh | None = None) -> float:
+    """One optimiser step on a batch -> its loss. Across ``mesh`` (JAX
+    ``make_train_step``'s ``dp`` axis) each shard takes its rows on its own
+    device, through a replica of the model there, and the gradients are
+    summed over the shards and the processes and averaged (the all-reduce):
+    with equal shards the loss and the update are the whole batch's.
+    Without a mesh the batch is one shard on the model's device."""
 
-    loss = frontier_cross_entropy(model, ex, loop)
-    loss.backward()
+    dev = leaves[0].device
+    shards = [(dev, ex)] if mesh is None else data_sharding(mesh)(ex)
+    replicas = [model] if mesh is None else replicated(mesh)(model)
+    n_shards = 1 if mesh is None else mesh.size
+    grads = [torch.zeros_like(t) for t in leaves]
+    total = torch.zeros((), dtype=torch.float32, device=dev)
+    for (_, part), replica in zip(shards, replicas):
+        own = leaves if replica is model else trainable_leaves(replica)
+        loss = frontier_cross_entropy(replica, part, loop)
+        for acc, g in zip(grads, torch.autograd.grad(loss, own, allow_unused=True)):
+            if g is not None:
+                acc += g.to(dev)
+        total += loss.detach().to(dev)
+    if mesh is not None:
+        all_reduce_sum(grads + [total], mesh)
+    for t, g in zip(leaves, grads):
+        t.grad = g / n_shards
     apply_step(optimizer, leaves)
-    return float(loss.detach())
+    return float(total / n_shards)
+
+
+def make_train_step(cfg: ExplorerConfig, optimizer=None, mesh: Mesh | None = None,
+                    loop: int = 10):
+    """The data-parallel train step (JAX training/explorer.py:65-98) ->
+    ``(step, optimizer, mesh)``: ``step(model, opt_state, ex) -> loss``
+    takes one :func:`train_step` over ``mesh`` (default: every card of this
+    process, :func:`~gnn_motion_planning_tpu_torch.parallel.mesh.make_mesh`)
+    at ``loop`` passes; ``model`` has config ``cfg`` and is updated in place,
+    ``opt_state`` is ``optimizer(trainable_leaves(model))``, the torch
+    optimiser over its leaves (``optimizer`` defaults to optax's
+    ``adam(1e-3, eps=1e-8)``, ``training/optim.py::adam``)."""
+
+    if optimizer is None:
+        optimizer = functools.partial(adam, lr=1e-3, eps=1e-8)
+    if mesh is None:
+        mesh = make_mesh()
+
+    def step(model: Explorer, opt_state, ex: ExplorerBatch) -> float:
+        if model.cfg != cfg:
+            raise ValueError(f"the step was made for {cfg}, the model has {model.cfg}")
+        leaves = [t for group in opt_state.param_groups for t in group["params"]]
+        return train_step(model, opt_state, leaves, ex, loop, mesh)
+
+    return step, optimizer, mesh
 
 
 # ---------------------------------------------------------------------------
@@ -179,6 +235,20 @@ def train_explorer(
     leaves = trainable_leaves(model)
     optimizer = adam(leaves, 1e-3, eps=1e-8)
 
+    # the mesh size must divide the batch: the largest power-of-two divisor
+    # of batch_size that this process's cards can provide (JAX :209-222)
+    n_dev = torch.cuda.device_count() if dev.type == "cuda" else 1
+    mesh_n = 1
+    while mesh_n * 2 <= min(n_dev, batch_size) and batch_size % (mesh_n * 2) == 0:
+        mesh_n *= 2
+    mesh = make_mesh(mesh_n, device=dev if dev.type == "cpu" else None)
+    steps = {}
+
+    def get_step(cur_loop):
+        if cur_loop not in steps:
+            steps[cur_loop] = make_train_step(model.cfg, mesh=mesh, loop=cur_loop)[0]
+        return steps[cur_loop]
+
     graphs = load_graphs(data_path)
     epoch = min(epoch, len(graphs))
 
@@ -273,7 +343,7 @@ def train_explorer(
             if len(same) >= batch_size:
                 batch_buf = [s for s in batch_buf if s["shape"] != shapes[-1]]
                 cur = int(np.round(np.mean([s["loop"] for s in same])))
-                losses.append(train_step(model, optimizer, leaves, _stack(same, dev), max(cur, 1)))
+                losses.append(get_step(max(cur, 1))(model, optimizer, _stack(same, dev)))
                 T += 1
                 if logger is not None:
                     # reference tag: train_explorer.py:191 add_scalar('train/loss')

@@ -20,7 +20,11 @@ import numpy as np
 import torch
 
 from gnn_motion_planning_tpu_torch import resolve_device
-from gnn_motion_planning_tpu_torch.models.smoother import Smoother, smoother_forward
+from gnn_motion_planning_tpu_torch.models.smoother import (  # noqa: F401 (JAX's surface)
+    Smoother,
+    init_smoother_params,
+    smoother_forward,
+)
 from gnn_motion_planning_tpu_torch.training.optim import (
     apply_step, set_lr, sgd_decayed, trainable_leaves)
 

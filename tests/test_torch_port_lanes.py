@@ -1,9 +1,17 @@
 """The port's lane axis against the JAX package's ``jax.vmap``: the kernel's
 plain versions with a lane axis of per-problem scenes, the env oracles over
-stacked scenes, and the lane-batched chunked greedy search.
+stacked scenes, the lane-batched chunked greedy search, and
+``explore_batch`` at 4 and 8 lanes against JAX's batched program
+(``tests/data/torch_port_lanes_jax_rows.json``; regenerate with ``python
+tests/test_torch_port_lanes.py``).
 
-Tolerances: decisions, counts, search trees and costs exactly.
+Tolerances: decisions, counts, search trees and costs exactly; an
+``explore_batch`` row's checks exactly and its cost within 1e-3 (the
+protocol rows' tolerance). ur5's wide cases are slow (1.5 and 5.5 minutes
+on this CPU); kuka7's cover the same code at 4 and 8 lanes.
 """
+
+from pathlib import Path
 
 import jax
 import jax.numpy as jnp
@@ -221,3 +229,93 @@ def test_lane_search_equals_jax_chunked(name):
             np.testing.assert_array_equal(got.prev[lane].numpy(), np.asarray(want.prev[lane]))
             np.testing.assert_array_equal(got.costs[lane].numpy(), np.asarray(want.costs[lane]))
         assert len(final) == L
+
+
+# ---------------------------------------------------------------------------
+# explore_batch at 4 and 8 lanes against JAX's batched program
+# ---------------------------------------------------------------------------
+
+WIDE_FIXTURE = Path(__file__).resolve().parent / "data" / "torch_port_lanes_jax_rows.json"
+# lanes -> problems (one group each); a cut protocol (batch 100, t_max 100)
+WIDE = {"lanes": [4, 8], "first": 2000, "batch": 100, "t_max": 100, "k": 30, "seed": 1234}
+
+
+def _wide_rows(results, indexes, path_cost):
+    return [dict(index=int(i), success=bool(r["success"]), c_explore=int(r["c_explore"]),
+                 c_smooth=int(r["c_smooth"]), cost=float(path_cost(r["smooth_path"])))
+            for i, r in zip(indexes, results)]
+
+
+def jax_wide_rows(config: str, lanes: int) -> list:
+    """JAX's ``explore_batch`` rows of one group of ``lanes`` problems."""
+
+    from gnn_motion_planning_tpu.api.batched import explore_batch as jax_explore_batch
+    from gnn_motion_planning_tpu.api.eval_gnn import path_cost
+    from gnn_motion_planning_tpu.api.registry import str2env as jax_str2env
+    from gnn_motion_planning_tpu.api.registry import str2models as jax_str2models
+
+    env = jax_str2env(config)[0]
+    scale = float(np.max(env.bound)) if config == "ur5" else 1.0
+    model, model_s = jax_str2models(config, scale=scale)
+    indexes = list(range(WIDE["first"], WIDE["first"] + lanes))
+    results = jax_explore_batch(env, model, model_s, indexes, lanes=lanes, batch=WIDE["batch"],
+                                t_max=WIDE["t_max"], k=WIDE["k"], seed=WIDE["seed"])
+    return _wide_rows(results, indexes, path_cost)
+
+
+@pytest.mark.parametrize("config,lanes", [
+    ("kuka7", 4),
+    ("kuka7", 8),
+    pytest.param("ur5", 4, marks=pytest.mark.slow),
+    pytest.param("ur5", 8, marks=pytest.mark.slow),
+])
+def test_explore_batch_wide_lanes_equal_jax(config, lanes):
+    """One group of 4 or 8 lanes (5-8 joints, so XLA's batched program
+    flattens lanes into rows) gives JAX's rows, lane for lane."""
+
+    import json
+
+    from gnn_motion_planning_tpu_torch.api.batched import explore_batch
+    from gnn_motion_planning_tpu_torch.api.eval_gnn import path_cost
+    from gnn_motion_planning_tpu_torch.api.registry import smoother_scale, str2env, str2models
+
+    env = str2env(config, device="cpu")[0]
+    model, model_s = str2models(config, "cpu", smoother_scale(config, env))
+    indexes = list(range(WIDE["first"], WIDE["first"] + lanes))
+    got = _wide_rows(explore_batch(env, model, model_s, indexes, lanes=lanes,
+                                   batch=WIDE["batch"], t_max=WIDE["t_max"], k=WIDE["k"],
+                                   seed=WIDE["seed"]), indexes, path_cost)
+    fixture = json.loads(WIDE_FIXTURE.read_text())
+    assert fixture["settings"] == WIDE
+    want = fixture["rows"][f"{config}_{lanes}"]
+    for g, w in zip(got, want):
+        for key in ("index", "success", "c_explore", "c_smooth"):
+            assert g[key] == w[key], (key, g, w)
+        assert abs(g["cost"] - w["cost"]) < 1e-3, (g, w)
+    assert len(got) == len(want) == lanes and any(r["success"] for r in got)
+
+
+def write_wide_fixture():
+    import json
+
+    rows = {}
+    for config in ("kuka7", "ur5"):
+        for lanes in WIDE["lanes"]:
+            rows[f"{config}_{lanes}"] = jax_wide_rows(config, lanes)
+            print(config, lanes, rows[f"{config}_{lanes}"], flush=True)
+    WIDE_FIXTURE.write_text(json.dumps({
+        "about": "gnn_motion_planning_tpu.api.batched.explore_batch, one group of `lanes` "
+                 "problems from `first`, JAX on the CPU; written by "
+                 "tests/test_torch_port_lanes.py::write_wide_fixture",
+        "settings": WIDE, "rows": rows,
+    }, indent=1) + "\n")
+
+
+if __name__ == "__main__":
+    import os
+    import sys
+
+    sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+    os.environ.setdefault("JAX_PLATFORMS", "cpu")
+    jax.config.update("jax_platforms", "cpu")
+    write_wide_fixture()

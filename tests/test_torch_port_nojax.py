@@ -2,7 +2,9 @@
 
 Every module of ``gnn_motion_planning_tpu_torch`` and the module-level code
 of ``chip_smoke.py`` and of every ``tools/torch_port_*.py`` are imported in a fresh interpreter in which ``jax``,
-``jaxlib``, ``optax``, ``orbax`` and ``gnn_motion_planning_tpu`` cannot be imported.
+``jaxlib``, ``optax``, ``orbax`` and ``gnn_motion_planning_tpu`` cannot be imported; after
+them all matplotlib is still not loaded (``utils/plot.py`` imports it inside
+its functions).
 """
 
 import subprocess
@@ -34,6 +36,10 @@ import glob, os
 for tool in sorted(glob.glob(REPO + "/tools/torch_port_*.py")):
     importlib.import_module(os.path.basename(tool)[:-3])
 assert not any(m == b or m.startswith(b + ".") for m in sys.modules for b in BLOCKED)
+# the last slice's modules are among them; plotting imports matplotlib lazily
+for new in ("graphs.rgg", "parallel.mesh", "utils.debug", "utils.plot"):
+    assert pkg.__name__ + "." + new in names, new
+assert "matplotlib" not in sys.modules
 print(len(names), "modules")
 """
 
